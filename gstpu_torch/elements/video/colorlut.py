@@ -1,0 +1,87 @@
+"""colorlut: .cube 1D/3D color-LUT video filter.
+
+The port of gstpu's colorlut (gstpu/elements/video/colorlut.py) on
+tensors: a host frame is uploaded once to the device, a 3D LUT runs the
+CUDA kernel on a CUDA tensor (the plain version on a CPU tensor), a 1D
+LUT runs as tensor code, and the result stays a tensor.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from gstpu_torch.core.base import VideoFilter
+from gstpu_torch.core.buffer import Buffer
+from gstpu_torch.core.device import default_device
+from gstpu_torch.core.element import PadDirection, PadPresence, PadTemplate
+from gstpu_torch.core.props import Mutability, Property
+from gstpu_torch.core.registry import Rank, register_element
+from gstpu_torch.core.video import PACKED_16, video_caps
+from gstpu_torch.ops.lut import (DeviceLut, apply_lut_1d, apply_lut_3d,
+                                 lut_from_numpy, parse_cube)
+
+_FORMATS = ("RGBA", "RGBA64LE", "RGBA64BE")
+# the 16-bit format whose stored byte order is not the host's
+_SWAPPED = "RGBA64BE" if sys.byteorder == "little" else "RGBA64LE"
+
+
+def _byteswap16(t: torch.Tensor) -> torch.Tensor:
+    """Swap the bytes of every uint16 in t, on t's device."""
+    return (t.view(torch.uint8).reshape(*t.shape, 2).flip(-1)
+            .contiguous().view(torch.uint16).reshape(t.shape))
+
+
+@register_element("colorlut", Rank.NONE)
+class ColorLut(VideoFilter):
+    PAD_TEMPLATES = [
+        PadTemplate("sink", PadDirection.SINK, PadPresence.ALWAYS,
+                    video_caps(formats=_FORMATS)),
+        PadTemplate("src", PadDirection.SRC, PadPresence.ALWAYS,
+                    video_caps(formats=_FORMATS)),
+    ]
+
+    location = Property(str, default=None, mutable=Mutability.READY,
+                        blurb="Path to the .cube LUT file")
+
+    def __init__(self, name=None):
+        super().__init__(name)
+        self._lut: DeviceLut | None = None
+        self._device: torch.device | None = None
+
+    def set_lut(self, lut) -> None:
+        """Programmatic LUT injection (tests, in-memory LUTs): a
+        DeviceLut from lut_from_numpy, or a parsed CubeLut (its table
+        moves to the element's device when the element starts)."""
+        if not isinstance(lut, DeviceLut):
+            lut = lut_from_numpy(
+                lut.table_3d if lut.is_3d else lut.table_1d,
+                lut.domain_scale, lut.domain_offset, "cpu")
+        self._lut = lut
+
+    def start(self) -> bool:
+        self._device = default_device()
+        if self.location:
+            with open(self.location) as f:
+                self.set_lut(parse_cube(f.read()))
+        if self._lut is None:
+            self.post_error("colorlut: no LUT configured "
+                            "(set `location` to a .cube file)")
+            return False
+        self._lut.table = self._lut.table.to(self._device)
+        return True
+
+    def transform(self, buf: Buffer) -> Buffer:
+        info = self.video_info
+        frame = info.tensor(buf, self._device)
+        swap = info.format == _SWAPPED
+        if swap:
+            frame = _byteswap16(frame)
+        lut = self._lut
+        fn = apply_lut_3d if lut.is_3d else apply_lut_1d
+        out = fn(frame, lut.table, lut.domain_scale, lut.domain_offset,
+                 max_val=65535 if info.format in PACKED_16 else 255)
+        if swap:
+            out = _byteswap16(out)
+        return Buffer(out, pts=buf.pts, duration=buf.duration)
