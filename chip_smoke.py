@@ -2,12 +2,21 @@
 """Drive the gstpu_torch port on one CUDA card, end to end.
 
 Run from the repository root:  python3 chip_smoke.py
+(`python3 chip_smoke.py --sass DIR` prints the SASS instruction counts
+of every kernel library in DIR and needs no card.)
 
-1. builds the port's CUDA kernels from the sources in the checkout;
+1. builds the port's CUDA kernels from the sources in the checkout and
+   prints each kernel's static SASS instruction counts, and per pixel
+   (sass_counts);
 2. holds each kernel against its plain PyTorch version on the same
-   inputs: hsv_filter_u8 and the u8 lut3d_trilinear bit for bit over a
-   4096x4096 frame holding every 24-bit colour once, the u16
-   lut3d_trilinear within 1 LSB on a seeded 4K RGBA64 frame;
+   inputs: hsv_filter_u8 bit for bit over a 4096x4096 frame holding
+   every 24-bit colour once, for 7 parameter sets (hue shifts up to
+   |360| and past it) x 4 layouts, out of place and in place, and its
+   division against IEEE division on every operand pair a pixel gives;
+   the u8 lut3d_trilinear bit for bit over the same colours, the u16
+   one within 1 LSB on a seeded 4K RGBA64 frame; both kernels on
+   1921x1081 frames, aligned and one pixel off 16 bytes; and the plain
+   emulation of the packed-table addressing against the LUT kernel;
 3. runs the main path, the 4K `videotestsrc ! hsvfilter ! colorlut !
    appsink` pipeline, through parse_launch on the card with every
    kernel's launch count set to 0 just before, and checks every frame
@@ -16,8 +25,10 @@ Run from the repository root:  python3 chip_smoke.py
 4. runs four device-resident `appsrc ! hsvfilter ! colorlut ! appsink`
    pipelines fed CUDA tensors, their frames pulled every round;
 5. times each kernel per 4K frame (median of 30 launches, CUDA events,
-   L2 flushed before each) beside its plain version, the bytes bound
-   and, for the LUT, torch.nn.functional.grid_sample as a yardstick.
+   L2 flushed before each) on a uniform random frame and on a smooth
+   one (a gradient plus low-frequency noise, like graded footage),
+   beside its plain version, the bytes bound and, for the LUT,
+   torch.nn.functional.grid_sample as a yardstick.
 
 It prints the card's name and power limit, one JSON line of kernels and
 last `{"ok": true, "device": {...}}`. Any failed phase raises, and the
@@ -28,6 +39,9 @@ without CUDA or a directory without the gstpu_torch package.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -42,11 +56,17 @@ W, H = 3840, 2160
 SEED = 20261016
 HSV_PARAMS = [(12.0, 1.1, 0.0, 0.9, 0.02),
               (-47.5, 0.8, 0.05, 1.3, -0.1),
-              (200.0, 1.5, -0.2, 0.7, 0.1)]
+              (200.0, 1.5, -0.2, 0.7, 0.1),
+              # the edges of the kernel's fmod_near variant and past it
+              (-360.0, 1.1, 0.0, 0.9, 0.02),
+              (360.0, 0.8, 0.05, 1.3, -0.1),
+              (359.99997, 1.5, -0.2, 0.7, 0.1),
+              (725.5, 1.2, -0.1, 0.9, 0.05)]
 LAYOUTS = {"RGBA": (0, 1, 2), "BGRA": (2, 1, 0), "ARGB": (1, 2, 3),
            "RGB": (0, 1, 2)}
 LUT_DOMAIN = (np.array([0.9, 1.1, 1.05], np.float32),
               np.array([0.02, -0.03, 0.01], np.float32))
+ODD_W, ODD_H = 1921, 1081
 PIPELINE_FRAMES = 8
 N_TIMED = 30
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
@@ -117,6 +137,109 @@ def time_ms(fn, flush: torch.Tensor, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
+SASS_CLASSES = ("I2F", "F2I", "FRND", "MUFU", "CALL", "BRA", "LDG", "LDS",
+                "STG")
+# The kernel function each wrapper launches for the timed RGBA8 frame.
+MAIN_FUNCTION = {"hsv_filter_u8": "hsv_filter_kernel<Li4ELb1",
+                 "lut3d_trilinear": "lut3d_kernel<hLi4"}
+
+
+def sass_counts(lib: Path) -> dict:
+    """Static SASS instruction counts of each kernel in a built library
+    (cuobjdump -sass): the total without NOPs, a few classes, and
+    `per_pixel`, the instructions one pixel costs on the main path:
+    - a kernel with a vector loop: the instructions of its largest loop
+      that stores 16 bytes and holds no WARPSYNC (the divergent copy the
+      compiler keeps beside a loop with shuffles is never run), over the
+      pixels one pass moves, 4 for an RGBA8 frame;
+    - a kernel without a loop (one pixel a thread): every instruction
+      before its last EXIT, the slow paths it calls lying after it."""
+    cuda_bin = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+    tool = shutil.which("cuobjdump") or str(cuda_bin / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    code, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            code[fn] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9]*)(.*)", line)
+        if fn and m and m.group(2) != "NOP":
+            code[fn].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for fn, ins in code.items():
+        c = {"total": len(ins), **{k: 0 for k in SASS_CLASSES}}
+        for _, op, _ in ins:
+            if op in SASS_CLASSES:
+                c[op] += 1
+        loops = []
+        for addr, op, rest in ins:
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and m and int(m.group(1), 16) < addr:
+                body = [(o, r) for a, o, r in ins
+                        if int(m.group(1), 16) <= a <= addr]
+                if any(o == "STG" and ".128" in r for o, r in body) \
+                        and not any(o == "WARPSYNC" for o, _ in body):
+                    loops.append(len(body))
+        if loops:
+            c["per_pixel"] = max(loops) / 4
+        else:
+            exits = [i for i, (_, op, _) in enumerate(ins) if op == "EXIT"]
+            c["per_pixel"] = float(exits[-1] + 1 if exits else len(ins))
+        out[fn] = c
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """`name<template args>` of a mangled kernel symbol, or the symbol:
+    the name is the `_kernel` identifier whose length prefix fits."""
+    head, sep, rest = mangled.partition("_kernelI")
+    for i in range(len(head)):
+        m = re.fullmatch(r"(\d+)([A-Za-z_]\w*)", head[i:])
+        if sep and m and int(m.group(1)) == len(m.group(2)) + 7:
+            return f"{m.group(2)}_kernel<{rest.split('EEv')[0]}>"
+    return mangled
+
+
+def log_sass(libs) -> dict:
+    counts = {}
+    for lib in libs:
+        for fn, c in sass_counts(lib).items():
+            counts[f"{lib.name}:{fn}"] = c
+            log(f"[sass] {lib.name} {fn}: " + ", ".join(
+                f"{k} {v}" for k, v in c.items()))
+    return counts
+
+
+def skewed(host: np.ndarray, skew_px: int, dev) -> torch.Tensor:
+    """`host` on the card as a contiguous view that starts skew_px
+    pixels into its buffer (a 16-byte aligned allocation)."""
+    C = host.shape[-1]
+    flat = torch.empty((host.size + 8 * C,), dtype=torch.from_numpy(
+        host[:0]).dtype, device=dev)
+    view = flat[skew_px * C:skew_px * C + host.size].view(host.shape)
+    view.copy_(torch.from_numpy(host).to(dev))
+    return view
+
+
+def smooth_frame(dev, gen) -> torch.Tensor:
+    """A 4K RGBA frame like graded footage: gradients plus bicubic
+    low-frequency noise, made on the card from `gen`."""
+    y = torch.linspace(0.0, 1.0, H, device=dev)[:, None]
+    x = torch.linspace(0.0, 1.0, W, device=dev)[None, :]
+    coarse = torch.rand((1, 3, 9, 16), generator=gen, device=dev)
+    noise = torch.nn.functional.interpolate(coarse, size=(H, W),
+                                            mode="bicubic")[0]
+    rgb = torch.stack([0.6 * x + 0.4 * noise[0], 0.6 * y + 0.4 * noise[1],
+                       0.3 * (x + y) + 0.4 * noise[2]], -1)
+    rgb = (rgb.clamp(0.0, 1.0) * 255.0).round().to(torch.uint8)
+    alpha = torch.full((H, W, 1), 255, dtype=torch.uint8, device=dev)
+    return torch.cat([rgb, alpha], -1).contiguous()
+
+
 def run_pipeline(gstpu_torch, launch: str, device: str) -> list:
     gstpu_torch.init(device=device)
     p = gstpu_torch.parse_launch(launch)
@@ -127,16 +250,34 @@ def run_pipeline(gstpu_torch, launch: str, device: str) -> list:
     return out
 
 
+def check_lut(name, got, want, max_val) -> int:
+    """Raise unless got equals want (u8) or is within 1 LSB of it with
+    the alpha channel untouched (u16); return the max error."""
+    e = max_abs_err(got, want)
+    log(f"[check] lut3d_trilinear {name}: max |err| {e}")
+    alpha_ok = got.shape[-1] < 4 or torch.equal(got[..., 3:].cpu(),
+                                                want[..., 3:].cpu())
+    if e > (0 if max_val == 255 else 1) or not alpha_ok:
+        raise AssertionError(f"lut3d_trilinear {name} differs from its "
+                             f"plain version")
+    return e
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--sass"]:
+        for d in sys.argv[2:]:
+            log_sass(sorted(Path(d).glob("*.so")))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     import gstpu_torch
-    from gstpu_torch.kernels import build_all
-    from gstpu_torch.ops.hsv import (HSV_KERNEL, hsv_filter_frame,
+    from gstpu_torch.kernels import build_all, stream_handle
+    from gstpu_torch.ops.hsv import (_INV_255, HSV_KERNEL, hsv_filter_frame,
                                      hsv_filter_frame_ref)
     from gstpu_torch.ops.lut import (LUT_KERNEL, apply_lut_3d,
+                                     apply_lut_3d_packed_ref,
                                      apply_lut_3d_ref, lut_from_numpy)
     kernels = [HSV_KERNEL, LUT_KERNEL]
     dev = torch.device("cuda", 0)
@@ -161,6 +302,7 @@ def main() -> int:
         for line in k.compiler_output.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    sass = log_sass([k.library_path for k in kernels])
 
     # 2. kernels against their plain versions
     err = {k.name: 0 for k in kernels}
@@ -171,44 +313,102 @@ def main() -> int:
             got = hsv_filter_frame(cube, rgb_idx, *params)
             want = hsv_filter_frame_ref(cube_cpu, rgb_idx, *params)
             e = max_abs_err(got, want)
-            log(f"[check] hsv_filter_u8 {layout} {params}: max |err| {e}")
-            if e != 0:
+            inplace = cube.clone()
+            hsv_filter_frame(inplace, rgb_idx, *params, out=inplace)
+            same = torch.equal(inplace, got)
+            log(f"[check] hsv_filter_u8 {layout} {params}: max |err| {e}, "
+                f"in place {'equal' if same else 'DIFFERS'}")
+            if e != 0 or not same:
                 raise AssertionError("hsv_filter_u8 differs from its "
                                      "plain version")
-            err["hsv_filter_u8"] = max(err["hsv_filter_u8"], e)
-        inplace = cube.clone()
-        hsv_filter_frame(inplace, rgb_idx, *HSV_PARAMS[0], out=inplace)
-        if not torch.equal(inplace, hsv_filter_frame(cube, rgb_idx,
-                                                     *HSV_PARAMS[0])):
-            raise AssertionError("hsv_filter_u8 in place differs")
     torch.cuda.synchronize()
+
+    # odd sizes, and frames one pixel off 16 bytes: in place, out of
+    # place into a buffer as skewed as the frame (the wrapper's) and
+    # into an aligned one
+    odd_rng = np.random.default_rng(SEED + 1)
+    for layout in ("RGBA", "RGB"):
+        host = odd_rng.integers(0, 256, (ODD_H, ODD_W, len(layout)),
+                                dtype=np.uint8)
+        for skew in (0, 1):
+            for params in (HSV_PARAMS[1], HSV_PARAMS[6]):
+                want = hsv_filter_frame_ref(torch.from_numpy(host),
+                                            LAYOUTS[layout], *params)
+                frame = skewed(host, skew, dev)
+                outs = {"out of place": hsv_filter_frame(
+                    frame, LAYOUTS[layout], *params)}
+                aligned = torch.empty(host.shape, dtype=torch.uint8,
+                                      device=dev)
+                outs["into an aligned buffer"] = hsv_filter_frame(
+                    frame, LAYOUTS[layout], *params, out=aligned)
+                outs["in place"] = hsv_filter_frame(
+                    frame, LAYOUTS[layout], *params, out=frame)
+                for how, got in outs.items():
+                    e = max_abs_err(got, want)
+                    log(f"[check] hsv_filter_u8 {layout} {ODD_W}x{ODD_H} "
+                        f"skew {skew} px, {how}, hue_shift {params[0]}: "
+                        f"max |err| {e}")
+                    if e != 0:
+                        raise AssertionError("hsv_filter_u8 differs on an "
+                                             "odd or unaligned frame")
+
+    # the kernel's division against IEEE division on every pair it can
+    # form: numerators x_i - x_j, denominators a chroma, a value or 1,
+    # with x_k = k * f32(1 / 255)
+    x = torch.arange(256, dtype=torch.float32, device=dev) * _INV_255
+    num = (x[:, None] - x[None, :]).reshape(-1).contiguous()
+    den = torch.cat([num[num > 0], x[x > 0],
+                     torch.ones(1, device=dev)]).unique().contiguous()
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    rc = HSV_KERNEL.load().hsv_div_rn_mismatches(
+        num.data_ptr(), num.numel(), den.data_ptr(), den.numel(),
+        bad.data_ptr(), stream_handle(dev))
+    torch.cuda.synchronize()
+    log(f"[check] hsv_filter_u8 division: {num.numel()} x {den.numel()} "
+        f"operand pairs, {int(bad.item())} differ from IEEE division")
+    if rc != 0 or int(bad.item()) != 0:
+        raise AssertionError("hsv_filter_u8's division differs from IEEE "
+                             "division")
 
     rng = np.random.default_rng(SEED)
     table_np = seeded_table(rng)
     lut_dev = lut_from_numpy(table_np, *LUT_DOMAIN, dev)
     lut_cpu = lut_from_numpy(table_np, *LUT_DOMAIN, "cpu")
     cube = colour_cube("RGBA", dev)
-    got = apply_lut_3d(cube, lut_dev.table, *LUT_DOMAIN)
+    got = apply_lut_3d(cube, lut_dev.table, *LUT_DOMAIN,
+                       packed=lut_dev.packed)
     want = apply_lut_3d_ref(cube.cpu(), lut_cpu.table, *LUT_DOMAIN)
-    e = max_abs_err(got, want)
-    log(f"[check] lut3d_trilinear u8 colour cube, 33^3: max |err| {e}")
-    if e != 0:
-        raise AssertionError("lut3d_trilinear u8 differs from its plain "
-                             "version")
+    errs = [check_lut("u8 colour cube, 33^3", got, want, 255)]
+    emulated = apply_lut_3d_packed_ref(cube, lut_dev.packed, *LUT_DOMAIN)
+    errs.append(check_lut("u8 colour cube against the packed-table "
+                          "emulation on the card", got, emulated, 255))
     deep_np = rng.integers(0, 65536, (H, W, 4), dtype=np.uint16)
     deep = torch.from_numpy(deep_np).to(dev)
-    got = apply_lut_3d(deep, lut_dev.table, *LUT_DOMAIN, max_val=65535)
+    got = apply_lut_3d(deep, lut_dev.table, *LUT_DOMAIN, max_val=65535,
+                       packed=lut_dev.packed)
     want = apply_lut_3d_ref(torch.from_numpy(deep_np), lut_cpu.table,
                             *LUT_DOMAIN, max_val=65535)
-    e16 = max_abs_err(got, want)
-    log(f"[check] lut3d_trilinear u16 4K RGBA64: max |err| {e16} LSB, "
-        f"{int((got.cpu() != want).sum())} values differ")
-    if e16 > 1 or not torch.equal(got[..., 3].cpu(),
-                                  torch.from_numpy(deep_np[..., 3])):
-        raise AssertionError("lut3d_trilinear u16 beyond 1 LSB or alpha "
-                             "touched")
-    err["lut3d_trilinear"] = max(e, e16)
-    del cube, deep, got, want
+    errs.append(check_lut("u16 4K RGBA64", got, want, 65535))
+    emulated = apply_lut_3d_packed_ref(torch.from_numpy(deep_np),
+                                       lut_cpu.packed, *LUT_DOMAIN,
+                                       max_val=65535)
+    errs.append(check_lut("u16 4K RGBA64 against the packed-table "
+                          "emulation", got, emulated, 65535))
+    for dtype, max_val, C in ((np.uint8, 255, 4), (np.uint16, 65535, 4),
+                              (np.uint8, 255, 3), (np.uint16, 65535, 3)):
+        host = odd_rng.integers(0, max_val + 1, (ODD_H, ODD_W, C),
+                                dtype=dtype)
+        want = apply_lut_3d_ref(torch.from_numpy(host), lut_cpu.table,
+                                *LUT_DOMAIN, max_val=max_val)
+        for skew in (0, 1):
+            got = apply_lut_3d(skewed(host, skew, dev), lut_dev.table,
+                               *LUT_DOMAIN, max_val=max_val,
+                               packed=lut_dev.packed)
+            errs.append(check_lut(
+                f"{np.dtype(dtype).name} C={C} {ODD_W}x{ODD_H} skew "
+                f"{skew} px", got, want, max_val))
+    err["lut3d_trilinear"] = max(errs)
+    del cube, deep, got, want, emulated
 
     # 3. the main path: the 4K chain through parse_launch
     with tempfile.TemporaryDirectory() as tmp:
@@ -321,12 +521,14 @@ def main() -> int:
         p.set_state(gstpu_torch.State.NULL)
     del pipes, sinks, last
 
-    # 5. timings per 4K frame
-    frame = bank[0]
-    table = lut_dev.table
+    # 5. timings per 4K frame, on a uniform random frame (the LUT's
+    # worst case: its gathers spread over the whole table) and on a
+    # smooth one
+    frames = {"random": bank[0], "smooth": smooth_frame(dev, gen)}
+    table, packed = lut_dev.table, lut_dev.packed
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     hsv_args = ((0, 1, 2), *HSV_PARAMS[0])
-    n = table.shape[0]
+    frame = frames["random"]
     xyz = (frame[..., :3].float() / 255.0 * torch.from_numpy(
         LUT_DOMAIN[0]).to(dev) + torch.from_numpy(LUT_DOMAIN[1]).to(dev)
            ).clamp(0.0, 1.0)
@@ -336,12 +538,12 @@ def main() -> int:
     rows = []
     for k, fn, plain_fn, library_fn, extra_bytes in (
             (HSV_KERNEL,
-             lambda: hsv_filter_frame(frame, *hsv_args),
-             lambda: hsv_filter_frame_ref(frame, *hsv_args),
+             lambda f: hsv_filter_frame(f, *hsv_args),
+             lambda f: hsv_filter_frame_ref(f, *hsv_args),
              None, 0),
             (LUT_KERNEL,
-             lambda: apply_lut_3d(frame, table, *LUT_DOMAIN),
-             lambda: apply_lut_3d_ref(frame, table, *LUT_DOMAIN),
+             lambda f: apply_lut_3d(f, table, *LUT_DOMAIN, packed=packed),
+             lambda f: apply_lut_3d_ref(f, table, *LUT_DOMAIN),
              lambda: torch.nn.functional.grid_sample(
                  volume, grid, mode="bilinear", padding_mode="border",
                  align_corners=True),
@@ -356,16 +558,24 @@ def main() -> int:
                          if k is HSV_KERNEL else "gstpu/ops/lut_pallas.py:60"),
             "launches": launches[k.name],
             "max_abs_err": err[k.name],
-            "ms": time_ms(fn, flush),
-            "plain_ms": time_ms(plain_fn, flush),
+            "ms": time_ms(lambda: fn(frame), flush),
+            "ms_smooth": time_ms(lambda: fn(frames["smooth"]), flush),
+            "plain_ms": time_ms(lambda: plain_fn(frame), flush),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": time_ms(library_fn, flush) if library_fn else None,
             "bytes_moved": moved,
         }
+        # the function this frame runs: RGBA8 (and |hue_shift| <= 360)
+        fn_name, row["sass"] = next(
+            (f, c) for f, c in sass.items()
+            if f.startswith(f"{k.library_path.name}:{MAIN_FUNCTION[k.name]}"))
+        row["sass_function"] = fn_name.split(":", 1)[1]
         if k is HSV_KERNEL:
             row["also_replaces"] = "gstpu/ops/hsv_pallas.py:63"
-        log(f"[time] {k.name} per 4K frame: {row['ms']:.4f} ms, plain "
+        log(f"[time] {k.name} per 4K frame: {row['ms']:.4f} ms random, "
+            f"{row['ms_smooth']:.4f} ms smooth, "
+            f"{row['sass']['per_pixel']} SASS instructions a pixel, plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}, {moved} B), library "
             f"{row['library_ms']} ms  [{smi}]")

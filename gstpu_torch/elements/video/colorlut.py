@@ -69,7 +69,8 @@ class ColorLut(VideoFilter):
             self.post_error("colorlut: no LUT configured "
                             "(set `location` to a .cube file)")
             return False
-        self._lut.table = self._lut.table.to(self._device)
+        # the table, and for 3D its packed form, move once per start
+        self._lut = self._lut.to(self._device)
         return True
 
     def transform(self, buf: Buffer) -> Buffer:
@@ -79,9 +80,14 @@ class ColorLut(VideoFilter):
         if swap:
             frame = _byteswap16(frame)
         lut = self._lut
-        fn = apply_lut_3d if lut.is_3d else apply_lut_1d
-        out = fn(frame, lut.table, lut.domain_scale, lut.domain_offset,
-                 max_val=65535 if info.format in PACKED_16 else 255)
+        max_val = 65535 if info.format in PACKED_16 else 255
+        if lut.is_3d:
+            out = apply_lut_3d(frame, lut.table, lut.domain_scale,
+                               lut.domain_offset, max_val=max_val,
+                               packed=lut.packed)
+        else:
+            out = apply_lut_1d(frame, lut.table, lut.domain_scale,
+                               lut.domain_offset, max_val=max_val)
         if swap:
             out = _byteswap16(out)
         return Buffer(out, pts=buf.pts, duration=buf.duration)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from gstpu_torch.kernels import CudaKernel, stream_handle
-from gstpu_torch.ops import fma_f32
+from gstpu_torch.ops import empty_like_skewed, fma_f32
 
 EPSILON = 1e-5
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
@@ -34,6 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 HSV_KERNEL = CudaKernel("hsv_filter_u8", "hsv_filter.cu", {
     "hsv_filter_u8": [_P, _P, ctypes.c_longlong, _I, _I, _I, _I,
                       _F, _F, _F, _F, _F, _P],
+    # a check of the kernel's division, run by chip_smoke.py
+    "hsv_div_rn_mismatches": [_P, _I, _P, _I, _P, _P],
 })
 
 
@@ -119,7 +121,7 @@ def hsv_filter_frame(frame: torch.Tensor, rgb_idx: tuple, hue_shift: float,
                          f"uint8 frame, got {frame.dtype} "
                          f"{tuple(frame.shape)} rgb_idx={rgb_idx}")
     if out is None:
-        out = torch.empty_like(frame)
+        out = empty_like_skewed(frame)
     elif out.shape != frame.shape or out.dtype != frame.dtype \
             or out.device != frame.device or not out.is_contiguous():
         raise ValueError("hsv_filter_frame: `out` must match `frame`")

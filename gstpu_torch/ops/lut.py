@@ -2,9 +2,12 @@
 
 `apply_lut_3d` runs where the frame lies: on a CUDA tensor it launches
 the hand-written kernel `lut3d_trilinear` (kernels/lut3d.cu, the port
-of the Pallas kernel in gstpu/ops/lut_pallas.py), on a CPU tensor the
-plain version `apply_lut_3d_ref`. `apply_lut_1d` has no kernel, as the
-JAX package has none: it is plain tensor code on either device.
+of the Pallas kernel in gstpu/ops/lut_pallas.py) on the table's packed
+form (`pack_lut_3d`, built once per LUT with its `DeviceLut`), on a
+CPU tensor the plain version `apply_lut_3d_ref`.
+`apply_lut_3d_packed_ref` is the kernel's addressing of the packed
+table in tensor code. `apply_lut_1d` has no kernel, as the JAX package
+has none: it is plain tensor code on either device.
 
 The plain versions reproduce gstpu/ops/lut.py (apply_lut_3d,
 apply_lut_1d) as the XLA CPU compiler runs them, bit for bit: XLA folds
@@ -16,13 +19,13 @@ the domain affine, the lerps `a + (b - a) * t` and the final
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from gstpu_torch.kernels import CudaKernel, stream_handle
-from gstpu_torch.ops import fma_f32
+from gstpu_torch.ops import empty_like_skewed, fma_f32
 
 
 @dataclass
@@ -111,19 +114,55 @@ def identity_lut(size: int = 2, three_d: bool = True) -> CubeLut:
                    table_3d=table)
 
 
+def pack_lut_3d(table: torch.Tensor) -> torch.Tensor:
+    """The kernel's corner-packed table, on `table`'s device: (N, N, N,
+    24) f32, entry [z, y, x] = for each channel c the 8 corners
+    table[z + dz, y + dy, x + dx, c], dx fastest, then dy, then dz,
+    each upper index clamped at N - 1. A pixel's 8 corners are then one
+    96-byte entry, 3 memory sectors when the tensor is 32-byte aligned,
+    as PyTorch's allocators align it."""
+    n = table.shape[0]
+    lo = torch.arange(n, device=table.device)
+    hi = (lo + 1).clamp(max=n - 1)
+    corners = [table[z][:, y][:, :, x]
+               for z in (lo, hi) for y in (lo, hi) for x in (lo, hi)]
+    return torch.stack(corners, dim=-1).reshape(n, n, n, 24).contiguous()
+
+
 @dataclass
 class DeviceLut:
     """A LUT ready for the frame path: the table as an f32 tensor on
-    its device, (N, N, N, 3) for 3D or (3, N) for 1D; the domain stays
-    on the host as (3,) f32 arrays, passed to kernels by value."""
+    its device, (N, N, N, 3) for 3D or (3, N) for 1D, and for 3D its
+    packed form (pack_lut_3d), built once beside it for the kernel; the
+    domain stays on the host as (3,) f32 arrays, passed to kernels by
+    value."""
 
     table: torch.Tensor
     domain_scale: np.ndarray
     domain_offset: np.ndarray
+    packed: torch.Tensor | None = field(init=False)
+
+    def __post_init__(self):
+        self.domain_scale = np.asarray(self.domain_scale,
+                                       np.float32).reshape(3)
+        self.domain_offset = np.asarray(self.domain_offset,
+                                        np.float32).reshape(3)
+        self.packed = pack_lut_3d(self.table) if self.is_3d else None
 
     @property
     def is_3d(self) -> bool:
         return self.table.dim() == 4
+
+    def to(self, device) -> DeviceLut:
+        """This LUT on `device`: itself if it is there, else a copy
+        whose packed table is built there."""
+        device = torch.device(device)
+        here = self.table.device
+        if here == device or (device.index is None
+                              and here.type == device.type):
+            return self
+        return DeviceLut(self.table.to(device), self.domain_scale,
+                         self.domain_offset)
 
 
 def lut_from_numpy(table: np.ndarray, domain_scale, domain_offset,
@@ -137,8 +176,7 @@ def lut_from_numpy(table: np.ndarray, domain_scale, domain_offset,
                          f"got {table.shape}")
     return DeviceLut(
         torch.from_numpy(np.ascontiguousarray(table)).to(device),
-        np.asarray(domain_scale, np.float32).reshape(3),
-        np.asarray(domain_offset, np.float32).reshape(3))
+        domain_scale, domain_offset)
 
 
 def _lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -208,6 +246,35 @@ def apply_lut_3d_ref(pix: torch.Tensor, table: torch.Tensor, scale, offset,
     return _finish(_lerp(c0, c1, tz), pix, max_val)
 
 
+def apply_lut_3d_packed_ref(pix: torch.Tensor, packed: torch.Tensor, scale,
+                            offset, *, max_val: int = 255) -> torch.Tensor:
+    """The kernel's addressing of the packed table (pack_lut_3d) in
+    plain tensor code, for the tests and chip_smoke.py: the entry at
+    flat float offset ((z0 * N + y0) * N + x0) * 24 holds channel c's
+    corner (dx, dy, dz) at + c * 8 + dz * 4 + dy * 2 + dx; the upper
+    indices x1, y1, z1 are never read."""
+    n = packed.shape[0]
+    flat = packed.reshape(-1)
+    lanes = torch.arange(3, device=pix.device) * 8
+    xyz = _normalise(pix, scale, offset, max_val) * (n - 1.0)
+    i0 = torch.floor(xyz).to(torch.int64).clamp(0, n - 1)
+    t = xyz - i0.to(torch.float32)
+    x0, y0, z0 = i0.unbind(-1)
+    e = (((z0 * n + y0) * n + x0) * 24).unsqueeze(-1) + lanes
+
+    def corner(dx, dy, dz):
+        return flat[e + dz * 4 + dy * 2 + dx]
+
+    tx, ty, tz = t[..., 0:1], t[..., 1:2], t[..., 2:3]
+    c00 = _lerp(corner(0, 0, 0), corner(1, 0, 0), tx)
+    c10 = _lerp(corner(0, 1, 0), corner(1, 1, 0), tx)
+    c01 = _lerp(corner(0, 0, 1), corner(1, 0, 1), tx)
+    c11 = _lerp(corner(0, 1, 1), corner(1, 1, 1), tx)
+    c0 = _lerp(c00, c10, ty)
+    c1 = _lerp(c01, c11, ty)
+    return _finish(_lerp(c0, c1, tz), pix, max_val)
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LUT_ARGS = [_P, _P, ctypes.c_longlong, _I, _P, _I,
              _F, _F, _F, _F, _F, _F, _P]
@@ -220,10 +287,13 @@ _LUT_SYMBOLS = {torch.uint8: ("lut3d_trilinear_u8", 255),
 
 
 def apply_lut_3d(pix: torch.Tensor, table: torch.Tensor, scale, offset, *,
-                 max_val: int = 255) -> torch.Tensor:
+                 max_val: int = 255, packed: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Trilinear 3D LUT on a (..., C) uint8 or uint16 frame, C = 3 or 4:
     the CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor. scale/offset: the (3,) f32 domain, on the host."""
+    tensor. scale/offset: the (3,) f32 domain, on the host. The kernel
+    reads `packed`, the table's pack_lut_3d (DeviceLut.packed), which
+    a CUDA frame needs: it is built once per LUT, never here."""
     if pix.device.type == "cpu":
         return apply_lut_3d_ref(pix, table, scale, offset, max_val=max_val)
     if pix.device.type != "cuda":
@@ -238,18 +308,22 @@ def apply_lut_3d(pix: torch.Tensor, table: torch.Tensor, scale, offset, *,
     if max_val != kernel_max:
         raise ValueError(f"apply_lut_3d: max_val {max_val} for {pix.dtype}")
     n = table.shape[0]
-    if table.shape != (n, n, n, 3) or table.dtype != torch.float32 \
-            or table.device != pix.device or not table.is_contiguous():
-        raise ValueError("apply_lut_3d: table must be a contiguous "
-                         "(N, N, N, 3) f32 tensor on the frame's device")
+    if packed is None or packed.shape != (n, n, n, 24) \
+            or packed.dtype != torch.float32 \
+            or packed.device != pix.device or not packed.is_contiguous() \
+            or packed.data_ptr() % 16:
+        raise ValueError("apply_lut_3d: a CUDA frame needs `packed`, the "
+                         "table's pack_lut_3d: a contiguous, 16-byte "
+                         "aligned (N, N, N, 24) f32 tensor on the frame's "
+                         "device")
     if C == 4 and pix.data_ptr() % (4 * pix.element_size()):
         raise ValueError("apply_lut_3d: 4-channel frames must be aligned "
                          "to a whole pixel")
     k = _domain_k(scale, max_val)
     off = np.asarray(offset, np.float32)
-    out = torch.empty_like(pix)
+    out = empty_like_skewed(pix)
     LUT_KERNEL.launch(symbol, pix.data_ptr(), out.data_ptr(),
-                      pix.numel() // C, C, table.data_ptr(), n,
+                      pix.numel() // C, C, packed.data_ptr(), n,
                       *map(float, k), *map(float, off),
                       stream_handle(pix.device))
     return out

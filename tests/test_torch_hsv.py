@@ -4,7 +4,10 @@ The plain version must equal JAX's hsv_filter_frame bit for bit: over
 every 24-bit colour, and on small frames for every channel layout. On
 a CPU tensor the wrapper runs the plain version; the CUDA kernel it
 launches on the card is held against the plain version by
-chip_smoke.py.
+chip_smoke.py. The kernel takes jnp.mod by compare and subtract where
+its argument is known to lie within 4 moduli, and hp mod 2 by a floor;
+each form, written in torch here, must equal the plain version's fmod
+form bit for bit over its argument's range.
 """
 
 import jax.numpy as jnp
@@ -14,7 +17,8 @@ import torch
 
 from gstpu.ops.hsv import hsv_filter_frame as jax_hsv_filter_frame
 from gstpu_torch.elements.video.hsv import _LAYOUTS
-from gstpu_torch.ops.hsv import (HSV_KERNEL, hsv_filter_frame,
+from gstpu_torch.ops import fma_f32
+from gstpu_torch.ops.hsv import (HSV_KERNEL, _floor_mod, hsv_filter_frame,
                                  hsv_filter_frame_ref)
 
 PARAMS = [(12.0, 1.1, 0.0, 0.9, 0.02),
@@ -83,3 +87,71 @@ def test_wrapper_refuses_other_devices_and_cpu_out():
     cpu = torch.zeros((4, 4, 4), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
         hsv_filter_frame(cpu, (0, 1, 2), *PARAMS[0], out=cpu)
+
+
+def _wrap_once(x: torch.Tensor) -> torch.Tensor:
+    """hsv_filter.cu's mod 360 of the hue, given in [0, 360]: one
+    compare and subtract."""
+    return torch.where(x >= 360.0, x - 360.0, x)
+
+
+def _floor_mod_near(a: torch.Tensor) -> torch.Tensor:
+    """hsv_filter.cu's fmod_near(a, 360) (|a| < 4 x 360, by compare and
+    subtract, sign of a) and the sign fix after it."""
+    x = a.abs()
+    x = torch.where(x >= 720.0, x - 720.0, x)
+    x = torch.where(x >= 360.0, x - 360.0, x)
+    r = torch.copysign(x, a)
+    return torch.where(r < 0.0, r + 360.0, r)
+
+
+def _mod2_by_floor(hp: torch.Tensor) -> torch.Tensor:
+    """hsv_filter.cu's mod 2 of hp >= -0: hp - 2 floor(hp / 2) as one
+    FMA, the floor taken by an add of 2^23 rounded toward zero, which
+    gives +0 for -0."""
+    return fma_f32(torch.floor(hp * 0.5) + 0.0, -2.0, hp)
+
+
+def _ulps_around(vals):
+    out = []
+    for v in np.asarray(vals, np.float32):
+        out += [np.nextafter(v, np.float32(-np.inf)), v,
+                np.nextafter(v, np.float32(np.inf))]
+    return out
+
+
+# each form of the kernel's jnp.mod, over the range its argument is
+# proven to lie in: the hue after its "+ 360 if negative"; the shifted
+# hue for |hue_shift| <= 360; hp = h / 60, h in [-0, 360]
+@pytest.mark.parametrize("form,m,lo,hi", [
+    (_wrap_once, 360.0, 0.0, 360.0),
+    (_floor_mod_near, 360.0, -360.0, 720.0),
+    (_mod2_by_floor, 2.0, 0.0, 6.0000005)])
+def test_kernel_mod_forms_match_floor_mod(form, m, lo, hi):
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    edges = [v for v in _ulps_around([lo, hi, 0.0, m, 2 * m, 3 * m, -m])
+             if lo32 <= v <= hi32] + [np.float32(-0.0)]
+    rng = np.random.default_rng(int(m * 10 + hi))
+    samples = rng.uniform(lo, hi, 10 ** 6).astype(np.float32)
+    a = torch.from_numpy(np.concatenate([np.array(edges, np.float32),
+                                         samples]))
+    assert a.min() >= lo32 and a.max() <= hi32
+    got, want = form(a), _floor_mod(a, m)
+    # bit patterns, so -0.0 and +0.0 differ
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if lo < 0:  # fmodf(-360, 360) is -0.0
+        assert set(got[a == -360.0].view(torch.int32).tolist()) == \
+            {int(np.float32(-0.0).view(np.int32))}
+
+
+@pytest.mark.parametrize("hue_shift", [-360.0, 360.0, 359.99997, 725.5])
+def test_plain_matches_jax_at_the_mod_edges(hue_shift):
+    """Shifts at and past the kernel's fmod_near range, on every grey
+    (hue 0, so hue + shift = shift) and seeded colours."""
+    rng = np.random.default_rng(17)
+    frame = rng.integers(0, 256, (64, 1024, 4), dtype=np.uint8)
+    frame[0, :256, :3] = np.arange(256, dtype=np.uint8)[:, None]
+    params = (hue_shift, 1.1, 0.0, 0.9, 0.02)
+    want = _jax(frame, (0, 1, 2), params)
+    got = hsv_filter_frame_ref(torch.from_numpy(frame), (0, 1, 2), *params)
+    np.testing.assert_array_equal(got.numpy(), want)

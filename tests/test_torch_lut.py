@@ -4,7 +4,10 @@ The .cube parser and identity LUT give the same arrays; the plain 3D
 and 1D LUTs equal JAX's apply_lut_3d / apply_lut_1d bit for bit (u8
 over every 24-bit colour, u16 on random pixels) and the Pallas kernel
 in interpret mode within 1 LSB. The CUDA kernel is held against the
-plain version on the card by chip_smoke.py.
+plain version on the card by chip_smoke.py. The kernel reads the table
+in its corner-packed form (pack_lut_3d): apply_lut_3d_packed_ref, the
+kernel's addressing in tensor code, must equal the plain version bit
+for bit.
 """
 
 import jax.numpy as jnp
@@ -161,3 +164,77 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     assert tlut.LUT_KERNEL.launches == launches
     with pytest.raises(ValueError, match="no kernel"):
         tlut.apply_lut_3d(pix.to("meta"), table, *DOMAIN)
+
+
+def _cube_chunks():
+    p = np.arange(1 << 24, dtype=np.uint32)
+    cube = np.stack([p & 255, (p >> 8) & 255, p >> 16, (p * 7 + 3) & 255],
+                    -1).astype(np.uint8).reshape(4096, 4096, 4)
+    return np.split(cube, 8)
+
+
+def test_packed_addressing_matches_plain_on_every_colour():
+    """The kernel's gather from the packed table, n = 33, over all 2^24
+    colours: equal to the plain version, which equals JAX (above)."""
+    lut = tlut.lut_from_numpy(_table(), *DOMAIN, "cpu")
+    for chunk in _cube_chunks():
+        pix = torch.from_numpy(chunk)
+        assert torch.equal(
+            tlut.apply_lut_3d_packed_ref(pix, lut.packed, *DOMAIN),
+            tlut.apply_lut_3d_ref(pix, lut.table, *DOMAIN))
+
+
+@pytest.mark.parametrize("dtype,max_val,n", [(np.uint8, 255, 2),
+                                             (np.uint8, 255, 17),
+                                             (np.uint16, 65535, 2),
+                                             (np.uint16, 65535, 17),
+                                             (np.uint16, 65535, 33)])
+def test_packed_addressing_matches_plain_and_jax(dtype, max_val, n):
+    rng = np.random.default_rng(100 + n)
+    pix = rng.integers(0, max_val + 1, (48, 80, 4), dtype=dtype)
+    pix[0, :4] = [[0, 0, 0, 7], [max_val] * 4, [0, max_val, 0, 1],
+                  [max_val, 0, max_val, 2]]
+    table = _table(n, seed=n)
+    lut = tlut.lut_from_numpy(table, *DOMAIN, "cpu")
+    got = tlut.apply_lut_3d_packed_ref(torch.from_numpy(pix), lut.packed,
+                                       *DOMAIN, max_val=max_val)
+    want = tlut.apply_lut_3d_ref(torch.from_numpy(pix), lut.table, *DOMAIN,
+                                 max_val=max_val)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), _jax_3d(pix, table, max_val))
+
+
+@pytest.mark.parametrize("n", [2, 17, 33])
+def test_lut_from_numpy_packs_the_table(n):
+    """(N, N, N, 24) f32, aligned; entry [z, y, x] holds channel c's
+    corner (dx, dy, dz) at c * 8 + dz * 4 + dy * 2 + dx, each upper index
+    clamped at N - 1."""
+    table = _table(n, seed=n)
+    lut = tlut.lut_from_numpy(table, *DOMAIN, "cpu")
+    packed = lut.packed
+    assert packed.shape == (n, n, n, 24) and packed.dtype == torch.float32
+    assert packed.is_contiguous() and packed.data_ptr() % 32 == 0
+    p = packed.numpy().reshape(n, n, n, 3, 8)
+    up = np.minimum(np.arange(n) + 1, n - 1)
+    for z, y, x in np.ndindex(n, n, n):
+        if n > 2 and (x, y) != (z, z) and (x, y) != (n - 1, 0):
+            continue  # a diagonal and an edge of the larger tables
+        for d in range(8):
+            dx, dy, dz = d & 1, (d >> 1) & 1, d >> 2
+            np.testing.assert_array_equal(
+                p[z, y, x, :, d],
+                table[up[z] if dz else z, up[y] if dy else y,
+                      up[x] if dx else x])
+    np.testing.assert_array_equal(p[-1, -1, -1],
+                                  np.repeat(table[-1, -1, -1, :, None], 8, 1))
+    assert torch.equal(tlut.pack_lut_3d(lut.table), packed)
+
+
+def test_device_lut_packs_once_per_device():
+    lut = tlut.lut_from_numpy(_table(5), *DOMAIN, "cpu")
+    assert lut.to("cpu") is lut
+    moved = lut.to("meta")
+    assert moved.table.device.type == moved.packed.device.type == "meta"
+    assert tuple(moved.packed.shape) == (5, 5, 5, 24)
+    one_d = tlut.lut_from_numpy(np.zeros((3, 4), np.float32), *DOMAIN, "cpu")
+    assert one_d.packed is None and one_d.to("meta").packed is None
