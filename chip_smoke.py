@@ -28,16 +28,33 @@ of every kernel library in DIR and needs no card.)
    L2 flushed before each) on a uniform random frame and on a smooth
    one (a gradient plus low-frequency noise, like graded footage),
    beside its plain version, the bytes bound and, for the LUT,
-   torch.nn.functional.grid_sample as a yardstick.
+   torch.nn.functional.grid_sample as a yardstick;
+6. runs the audio flagship chain `rsaudioecho ! audioloudnorm !
+   ebur128level` (make_audiofx_exact_chain) at full width on the card:
+   96 streams of 192 kHz F64 stereo, a 0.25 s echo, primed with 3 s,
+   then 6 settling and 20 timed 100 ms steps over a 12-frame input
+   bank made on the card; prints the realtime multiple, the device and
+   host time of each stage of a step, the limiter's loop iterations, a
+   profiler window's kernel launches, busy share and kernel time by
+   stage, and the fused meter's loudness. It checks lane 0 of a
+   1-stream run against the 96-stream run bit for bit, 2 streams on
+   the card against the same 2 on the CPU (samples within 1e-12,
+   identical decisions, over 10 steps; one stream's spikes drive the
+   limiter out of its rest state), and an `audiotestsrc ! rsaudioecho !
+   appsink` pipeline on the card against the CPU bit for bit; and times each
+   main-path jit kernel (echo, block biquad, limiter) alone beside its
+   bytes bound.
 
-It prints the card's name and power limit, one JSON line of kernels and
-last `{"ok": true, "device": {...}}`. Any failed phase raises, and the
+It prints one JSON line of the audio chain, the card's name and power
+limit, one JSON line of kernels and last
+`{"ok": true, "device": {...}}`. Any failed phase raises, and the
 script then exits non-zero without that last line; so does a machine
 without CUDA or a directory without the gstpu_torch package.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -79,6 +96,15 @@ F32_OPS_PER_S = 67e12
 # stay bound by bytes with several times this count.
 OPS_PER_PIXEL = {"hsv_filter_u8": 60, "lut3d_trilinear": 99}
 ROOT = Path(__file__).resolve().parent
+# the audio chain as bench.py runs it: 96 streams of 192 kHz F64
+# stereo, echo delay = max delay = 0.25 s (96,000 flattened samples)
+AUDIO_STREAMS = 96
+AUDIO_CHANNELS = 2
+AUDIO_DELAY = 96_000
+AUDIO_INTENSITY, AUDIO_FEEDBACK = 0.4, 0.3
+AUDIO_BANK, AUDIO_SETTLE, AUDIO_TIMED = 12, 6, 20
+AUDIO_CHECK_STEPS = 3
+AUDIO_LIMITER_STEPS = 10     # the card-vs-CPU check, limiter stream
 
 
 def log(*args) -> None:
@@ -261,6 +287,309 @@ def check_lut(name, got, want, max_val) -> int:
         raise AssertionError(f"lut3d_trilinear {name} differs from its "
                              f"plain version")
     return e
+
+
+def audio_signal(n_flat: int, freq: float, gen, dev) -> torch.Tensor:
+    """bench.py's input for every stream: a `freq` sine at 0.15 plus a
+    97 Hz sine at 0.05, the same in both channels, plus 1e-3 gaussian
+    noise of each stream's own; made on the card."""
+    C = AUDIO_CHANNELS
+    t = torch.arange(n_flat // C, dtype=torch.float64, device=dev) \
+        / 192_000.0
+    base = 0.15 * torch.sin(2 * np.pi * freq * t) \
+        + 0.05 * torch.sin(2 * np.pi * 97.0 * t)
+    sig = base[:, None].expand(-1, C).reshape(-1)
+    noise = 1e-3 * torch.randn((AUDIO_STREAMS, n_flat), generator=gen,
+                               dtype=torch.float64, device=dev)
+    return sig[None, :] + noise
+
+
+def limiter_signal(n_flat: int, freq: float, dev) -> torch.Tensor:
+    """One stream that drives the true-peak limiter: a `freq` sine at
+    0.003 and, every 0.3 s, 3 one-sample spikes 5 ms apart, each of its
+    own height in [0.6, 0.95) (no two equal, so no decision rests on a
+    tie); the same in both channels. Its loudness stays far below the
+    target, so the gain lifts the spikes past the ceiling and the
+    limiter attacks, sustains, releases and rests, several loop
+    iterations a frame."""
+    C = AUDIO_CHANNELS
+    i = torch.arange(n_flat // C, device=dev)
+    t = i.to(torch.float64) / 192_000.0
+    phase = i % 57_600
+    n = (i // 57_600) * 3 + phase // 960
+    height = 0.6 + 0.35 * torch.frac(n.to(torch.float64) * 0.6180339887)
+    x = 0.003 * torch.sin(2 * np.pi * freq * t) \
+        + torch.where((phase % 960 == 0) & (phase < 3 * 960), height,
+                      torch.zeros_like(t))
+    return x[:, None].expand(-1, C).reshape(1, -1)
+
+
+def decisions(st) -> list:
+    """The loudnorm state's control-flow entries, per stream."""
+    ln = st["ln"]
+    return [ln["gidx"]] + [ln[k].cpu().tolist() for k in
+                           ("lstate", "env_cnt", "sus", "above", "bcount")]
+
+
+def audio_bounds(B: int, C: int) -> dict:
+    """Least bytes each main-path jit kernel must move per 100 ms step
+    at B streams, each input read once and each output written once,
+    over the card's memory rate (ms). echo_block: the block in and out,
+    the delayed samples read and the new ones written (the frame is
+    shorter than the delay); make_block_biquad: one channel-frame in
+    and out per call (4 calls a step); _limiter_frame with the gain
+    machine: the |x| window it scans, the enveloped head and the
+    clipped output written, and the 4096-block gating history read."""
+    from gstpu_torch.ops.loudnorm_dev import ABSW, FRAME
+    n = FRAME * C
+    by = {"echo_block": 4 * B * n * 8,
+          "make_block_biquad": 2 * B * n * 8,
+          "_limiter_frame": B * (ABSW * C + 2 * n + 4096) * 8}
+    return {k: (v, v / HBM_BYTES_PER_S * 1e3) for k, v in by.items()}
+
+
+def device_events(fn, n: int):
+    """Run fn n times under torch.profiler. Returns the device-side
+    events (kernels, copies, and the ranges that are mirrored on the
+    device) and the wall time of the n runs in seconds."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA], wall
+
+
+def audio_phase(gstpu_torch, dev, smi) -> dict:
+    """6. The audio flagship chain at full width, its checks and its
+    per-stage and per-kernel times."""
+    from gstpu_torch.ops import loudnorm_dev as ln
+    from gstpu_torch.ops.biquad import (biquad_coeffs_shelving,
+                                        make_block_biquad)
+    from gstpu_torch.ops.echo import echo_block
+    from gstpu_torch.parallel.chains import (STAGES,
+                                             make_audiofx_exact_chain)
+    B, C = AUDIO_STREAMS, AUDIO_CHANNELS
+    args = (AUDIO_INTENSITY, AUDIO_FEEDBACK)
+    prime, step, init, n_prime, n_step = make_audiofx_exact_chain(
+        channels=C, echo_delay=AUDIO_DELAY, max_delay=AUDIO_DELAY)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = audio_signal(n_prime, 440.0, gen, dev)
+    bank = [audio_signal(n_step, 300.0 + 40 * k, gen, dev)
+            for k in range(AUDIO_BANK)]
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    state, out = prime(init(B, device=dev), x0, *args)
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    lane0 = [out[0].clone()]
+    for k in range(AUDIO_SETTLE):
+        state, out, meters = step(state, bank[k % AUDIO_BANK], *args)
+        if k < AUDIO_CHECK_STEPS:
+            lane0.append(out[0].clone())
+    torch.cuda.synchronize()
+
+    ln.LIMITER_LOOP.iterations = 0
+    t0 = time.perf_counter()
+    for i in range(AUDIO_TIMED):
+        state, out, meters = step(state, bank[i % AUDIO_BANK], *args)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rt = B * AUDIO_TIMED * 0.1 / wall
+    loops = ln.LIMITER_LOOP.iterations / AUDIO_TIMED
+    shortterm = meters["shortterm"]
+    if out.shape != (B, n_step) or not bool(torch.isfinite(out).all()) \
+            or not bool(torch.isfinite(shortterm).all()):
+        raise AssertionError("audio chain output or meter not finite")
+    st_mean = float(shortterm.double().mean())
+    log(f"[audio] {B} streams x {AUDIO_TIMED} steps of 100 ms in "
+        f"{wall * 1e3:.3f} ms: {rt:.2f}x realtime; the host enqueued "
+        f"them in {enqueue * 1e3:.3f} ms; prime {prime_s:.3f} s; limiter "
+        f"loop {loops} iterations a step; fused meter mean short-term "
+        f"{st_mean:.4f} LUFS (target -24)  [{smi}]")
+
+    # each stage of a step: CUDA events and the host clock at the
+    # stage marks, over 5 steps (medians)
+    dev_ms = {k: [] for k in STAGES}
+    host_ms = {k: [] for k in STAGES}
+    for i in range(5):
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e, time.perf_counter()))
+
+        mark("start")
+        state, out, meters = step(state, bank[i % AUDIO_BANK], *args,
+                                  mark=mark)
+        torch.cuda.synchronize()
+        for (_, e0, h0), (name, e1, h1) in zip(marks, marks[1:]):
+            dev_ms[name].append(e0.elapsed_time(e1))
+            host_ms[name].append((h1 - h0) * 1e3)
+    stage_ms = {k: statistics.median(v) for k, v in dev_ms.items()}
+    stage_host_ms = {k: statistics.median(v) for k, v in host_ms.items()}
+    log("[audio] stage ms a step, device (host): " + ", ".join(
+        f"{k} {stage_ms[k]:.3f} ({stage_host_ms[k]:.3f})" for k in STAGES))
+
+    # a profiler window of 3 steps: the kernels launched, the device's
+    # busy share, and each stage's kernel time (a profiler range per
+    # stage, closed and the next opened at each mark; the ranges are
+    # mirrored on the device, where they bound each stage's kernels)
+    frames = itertools.cycle(bank)
+
+    def profiled_step():
+        nonlocal state
+        ranges = [torch.profiler.record_function(
+            f"audio_stage_{STAGES[0]}")]
+        ranges[0].__enter__()
+
+        def pmark(name):
+            ranges[-1].__exit__(None, None, None)
+            if len(ranges) < len(STAGES):
+                ranges.append(torch.profiler.record_function(
+                    f"audio_stage_{STAGES[len(ranges)]}"))
+                ranges[-1].__enter__()
+
+        state = step(state, next(frames), *args, mark=pmark)[0]
+
+    on_dev, window = device_events(profiled_step, 3)
+    spans = [e for e in on_dev if e.name.startswith("audio_stage_")]
+    kern = [e for e in on_dev if not e.name.startswith("audio_stage_")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    stage_busy = {}
+    for k in STAGES:
+        mine = [(r.time_range.start, r.time_range.end)
+                for r in spans if r.name == f"audio_stage_{k}"]
+        stage_busy[k] = sum(
+            e.time_range.elapsed_us() for e in kern
+            if any(a <= e.time_range.start < b for a, b in mine)) / 3e3 \
+            if mine else None
+    profile = {"kernels_per_step": len(kern) / 3,
+               "busy_ms_per_step": busy_ms / 3 if kern else None,
+               "wall_ms_per_step": window * 1e3 / 3,
+               "busy_share": busy_ms / (window * 1e3) if kern else None,
+               "stage_busy_ms": stage_busy}
+    log(f"[audio] profiler, 3 steps: {profile}")
+
+    # lane 0 of a 1-stream run equals the 96-stream run bit for bit
+    st1, o1 = prime(init(1, device=dev), x0[:1], *args)
+    lane_diff = float((o1[0] - lane0[0]).abs().max())
+    for k in range(AUDIO_CHECK_STEPS):
+        st1, o1, _ = step(st1, bank[k][:1], *args)
+        lane_diff = max(lane_diff, float((o1[0] - lane0[k + 1]).abs().max()))
+    log(f"[audio] B=1 vs B={B} lane 0, prime + {AUDIO_CHECK_STEPS} steps: "
+        f"max |diff| {lane_diff}")
+    if lane_diff != 0.0:
+        raise AssertionError("lane 0 of the 1-stream run differs from the "
+                             f"{B}-stream run")
+
+    # 2 streams on the card against the same 2 on the CPU: stream 0 of
+    # the bench input, and a stream that drives the limiter
+    x2 = [torch.cat([x0[:1], limiter_signal(n_prime, 440.0, dev)])]
+    x2 += [torch.cat([bank[k][:1], limiter_signal(n_step, 300.0 + 40 * k,
+                                                  dev)])
+           for k in range(AUDIO_LIMITER_STEPS)]
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        st2, o = prime(init(2, device=where), x2[0].to(where), *args)
+        outs, trace = [o.cpu()], [decisions(st2)]
+        ln.LIMITER_LOOP.iterations = 0
+        for k in range(AUDIO_LIMITER_STEPS):
+            st2, o, _ = step(st2, x2[k + 1].to(where), *args)
+            outs.append(o.cpu())
+            trace.append(decisions(st2))
+        runs.append((outs, trace, ln.LIMITER_LOOP.iterations))
+    (card_outs, card_trace, card_loops), (cpu_outs, cpu_trace, _) = runs
+    cpu_diff = max(float((a - b).abs().max())
+                   for a, b in zip(card_outs, cpu_outs))
+    same_trace = card_trace == cpu_trace
+    lim_trace = [d[1][1] for d in card_trace]
+    log(f"[audio] 2 streams, card vs CPU, prime + {AUDIO_LIMITER_STEPS} "
+        f"steps: max |diff| {cpu_diff}, decisions "
+        f"{'identical' if same_trace else 'DIFFER'}; the limiter stream's "
+        f"state after each (0 out, 1 attack, 2 sustain, 3 release) "
+        f"{lim_trace}, {card_loops} loop iterations in "
+        f"{AUDIO_LIMITER_STEPS} steps")
+    if not cpu_diff <= 1e-12 or not same_trace:
+        raise AssertionError("the card's audio chain differs from the CPU")
+    if set(lim_trace) == {ln.OUT} or card_loops <= AUDIO_LIMITER_STEPS:
+        raise AssertionError("the card-vs-CPU check did not drive the "
+                             "limiter")
+
+    # the rsaudioecho element through parse_launch, card and CPU
+    launch = ("audiotestsrc num-buffers=20 samplesperbuffer=19200 "
+              "wave=ticks ! audio/x-raw, format=F64LE, rate=192000, "
+              "channels=2 ! rsaudioecho delay=250000000 "
+              "max-delay=500000000 intensity=0.5 feedback=0.3 ! "
+              "appsink name=out")
+    card = run_pipeline(gstpu_torch, launch, dev)
+    plain = run_pipeline(gstpu_torch, launch, "cpu")
+    if len(card) != 20 or len(plain) != 20:
+        raise AssertionError("rsaudioecho pipeline lost buffers")
+    echo_diff = 0.0
+    for a, b in zip(card, plain):
+        if a.data.device != dev or a.data.shape != (19200, 2):
+            raise AssertionError("rsaudioecho output is not on the card")
+        echo_diff = max(echo_diff,
+                        float((a.data.cpu() - b.data).abs().max()))
+    log(f"[audio] audiotestsrc ! rsaudioecho ! appsink, 20 x 19200 "
+        f"frames on the card vs the CPU: max |diff| {echo_diff}")
+    if echo_diff != 0.0:
+        raise AssertionError("rsaudioecho on the card differs from the CPU")
+    gstpu_torch.init(device=dev)
+
+    # each main-path jit kernel alone at the step's shapes
+    bounds = audio_bounds(B, C)
+    y = bank[0]
+    tail = state["tail"]
+    xt = y.reshape(B, -1, C).permute(0, 2, 1).reshape(B * C, -1) \
+        .contiguous()
+    biquad = make_block_biquad(*biquad_coeffs_shelving(ln.RATE), L=64)
+    z = state["ln"]["z_in1"]
+    lst = state["ln"]
+    jit_kernels = {
+        "echo_block": (lambda: echo_block(tail, y, *args,
+                                          delay=AUDIO_DELAY), 1,
+                       "gstpu/ops/echo.py:34"),
+        "make_block_biquad": (lambda: biquad(xt, z), 4,
+                              "gstpu/ops/biquad.py:188"),
+        "_limiter_frame": (lambda: ln._limiter_frame(
+            ln.LoudnormParams(channels=C), lst["lim"], lst["gr0"],
+            lst["gr1"], lst["lstate"], lst["env_cnt"], lst["sus"],
+            ln.FRAME), 1, "gstpu/ops/loudnorm_dev.py:270"),
+    }
+    rows = {}
+    for name, (fn, calls, src) in jit_kernels.items():
+        fn()
+        kern, w = device_events(fn, 5)
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 5e3
+        rows[name] = {"replaces": src, "calls_per_step": calls,
+                      "kernels_per_call": len(kern) / 5, "busy_ms": busy,
+                      "wall_ms": w * 1e3 / 5, "bound_ms": bounds[name][1],
+                      "bytes": bounds[name][0]}
+        log(f"[audio] {name} alone (B={B}), a call: {len(kern) / 5} "
+            f"kernels, {busy:.4f} ms busy on the device, {w * 200:.4f} ms "
+            f"wall; {calls} a step; bytes bound {bounds[name][1]:.4f} ms "
+            f"({bounds[name][0]} B)  [{smi}]")
+    return {"B": B, "channels": C, "rt": rt, "wall_ms": wall * 1e3,
+            "enqueue_ms": enqueue * 1e3, "prime_s": prime_s,
+            "stage_ms": stage_ms, "stage_host_ms": stage_host_ms,
+            "limiter_iterations_per_step": loops, "profile": profile,
+            "shortterm_mean_lufs": st_mean,
+            "lane0_b1_vs_b96_max_abs_diff": lane_diff,
+            "card_vs_cpu_max_abs_diff": cpu_diff,
+            "check_limiter_states": lim_trace,
+            "check_limiter_iterations": card_loops,
+            "echo_pipeline_max_abs_diff": echo_diff,
+            "jit_kernels": rows}
 
 
 def main() -> int:
@@ -581,6 +910,10 @@ def main() -> int:
             f"{row['library_ms']} ms  [{smi}]")
         rows.append(row)
 
+    # 6. the audio flagship chain
+    audio = audio_phase(gstpu_torch, dev, smi)
+
+    log(json.dumps({"audio": audio}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

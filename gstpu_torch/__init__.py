@@ -1,15 +1,18 @@
 """gstpu_torch — the PyTorch and CUDA port of gstpu.
 
 The same element and pipeline model as gstpu (caps, buffers, events,
-pads, a gst-launch pipeline language), with frames as torch tensors and
-the per-pixel work of each ported element in a hand-written CUDA kernel
+pads, a gst-launch pipeline language), with frames as torch tensors.
+The work of each Pallas kernel of gstpu is a hand-written CUDA kernel
 for Hopper (gstpu_torch/kernels/), beside a plain PyTorch version that
-runs for CPU tensors. The package imports nothing of gstpu or JAX.
+runs for CPU tensors; gstpu's jit-compiled device code (the audio
+chain) is torch ops that run on the device of their inputs. The
+package imports nothing of gstpu or JAX.
 
 Layering:
   core/     — Caps/Buffer/Event/Query/Element/Pad/Pipeline/parse, device
   runtime/  — cooperative scheduler
-  ops/      — kernel wrappers and their plain versions
+  ops/      — kernel wrappers and their plain versions, the audio DSP
+  parallel/ — whole element chains as one batched step
   kernels/  — CUDA sources and their build
   elements/ — the ported elements
   utils/    — tracers, logging

@@ -11,6 +11,7 @@ from dataclasses import dataclass
 from fractions import Fraction
 
 import numpy as np
+import torch
 
 from gstpu_torch.core.buffer import Buffer
 from gstpu_torch.core.caps import AnyList, Caps, IntRange, Structure
@@ -26,6 +27,16 @@ AUDIO_FORMATS: dict[str, np.dtype] = {
     "S16BE": np.dtype(">i2"),
     "U8": np.dtype("u1"),
     "S8": np.dtype("i1"),
+}
+
+# the formats a tensor holds as they are (little-endian host)
+TENSOR_DTYPES: dict[str, torch.dtype] = {
+    "F64LE": torch.float64,
+    "F32LE": torch.float32,
+    "S32LE": torch.int32,
+    "S16LE": torch.int16,
+    "U8": torch.uint8,
+    "S8": torch.int8,
 }
 
 # Packed 24-bit (3 bytes/sample on the wire, gst-audio S24BE/S24LE
@@ -133,6 +144,24 @@ class AudioInfo:
         if arr.dtype != self.dtype:
             arr = arr.view(self.dtype)
         return arr.reshape(-1, self.channels)
+
+    def tensor(self, buf: Buffer, device) -> torch.Tensor:
+        """(frames, channels) tensor of an interleaved buffer. A tensor
+        payload is reshaped where it lies, without a transfer; a host
+        payload is uploaded once to `device`. Only the formats of
+        TENSOR_DTYPES have a tensor form."""
+        dtype = TENSOR_DTYPES.get(self.format)
+        if dtype is None:
+            raise ValueError(f"tensor() has no form for {self.format}")
+        d = buf.data
+        if isinstance(d, torch.Tensor):
+            if d.dtype != dtype:
+                d = d.contiguous().view(torch.uint8).view(dtype)
+            return d.reshape(-1, self.channels)
+        arr = self.view(buf)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        return torch.from_numpy(arr).to(device)
 
     def make_buffer(self, samples: np.ndarray, *, pts: int | None = None,
                     duration: int | None = None) -> Buffer:

@@ -78,6 +78,8 @@ def test_import_loads_neither_jax_nor_gstpu():
     code = ("import sys, gstpu_torch\n"
             "gstpu_torch.init(device='cpu')\n"
             "import gstpu_torch.ops.hsv, gstpu_torch.ops.lut\n"
+            "import gstpu_torch.ops.loudnorm_dev\n"
+            "import gstpu_torch.parallel.chains\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu')]\n"
             "print(len(sys.modules), bad)\n"
@@ -103,9 +105,29 @@ def test_port_has_its_own_registry():
     from gstpu_torch.core.registry import element_factory, list_factories
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    for name in ("hsvfilter", "colorlut", "appsrc", "videotestsrc"):
+    for name in ("hsvfilter", "colorlut", "appsrc", "videotestsrc",
+                 "rsaudioecho"):
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
         assert port.__module__.startswith("gstpu_torch.")
         assert ref.__module__.startswith("gstpu.")
     assert "hsvdetector" not in list_factories()
+
+
+def test_rsaudioecho_with_context_raises():
+    """DeviceContext batching is not ported: asking for it stops the
+    element from starting rather than running it unbatched."""
+    gstpu_torch.init(device="cpu")
+    el = gstpu_torch.make("rsaudioecho", context="ctx")
+    with pytest.raises(NotImplementedError, match="context"):
+        el.start()
+
+
+def test_rsaudioecho_has_no_context_block():
+    """The DeviceContext block size is not a property of the port's
+    element until DeviceContext is: a launch string naming it fails."""
+    gstpu_torch.init(device="cpu")
+    with pytest.raises(KeyError, match="context-block"):
+        gstpu_torch.parse_launch(
+            "audiotestsrc num-buffers=1 ! rsaudioecho context-block=256 "
+            "! fakesink")
