@@ -43,10 +43,25 @@ of every kernel library in DIR and needs no card.)
    limiter out of its rest state), and an `audiotestsrc ! rsaudioecho !
    appsink` pipeline on the card against the CPU bit for bit; and times each
    main-path jit kernel (echo, block biquad, limiter) alone beside its
-   bytes bound.
+   bytes bound;
+7. runs the element form through DeviceContext: (a) 96 parse_launch
+   pipelines of `appsrc ! rsaudioecho ! audioloudnorm ! ebur128level !
+   appsink` sharing one context (depth 2), fed DeviceRow rows of phase
+   6's banks: prime, 6 settling and 20 timed rounds, 3 more under the
+   profiler; prints the realtime multiple, the host ms a round inside
+   the context's submit/_fire/_distribute, the kernels a round, beside
+   phase 6's hand-fused step; checks every lane's output against
+   make_audiofx_exact_chain at B=96 bit for bit and each lane's last
+   short-term loudness within 1 LU of -24 LUFS; tears the pipelines
+   down without EOS; then runs 2 pipelines (one stream driving the
+   limiter) to EOS through a partial last frame on the card and on the
+   CPU: samples within 1e-12, decisions identical; (b) four 4K
+   `appsrc ! hsvfilter ! colorlut ! appsink` pipelines sharing one
+   context, fed CUDA tensors: every fire launches each kernel once,
+   each frame equals the unbatched wrappers' output bit for bit; fps.
 
-It prints one JSON line of the audio chain, the card's name and power
-limit, one JSON line of kernels and last
+It prints one JSON line each of the audio chain and of the element form,
+the card's name and power limit, one JSON line of kernels and last
 `{"ok": true, "device": {...}}`. Any failed phase raises, and the
 script then exits non-zero without that last line; so does a machine
 without CUDA or a directory without the gstpu_torch package.
@@ -105,6 +120,8 @@ AUDIO_INTENSITY, AUDIO_FEEDBACK = 0.4, 0.3
 AUDIO_BANK, AUDIO_SETTLE, AUDIO_TIMED = 12, 6, 20
 AUDIO_CHECK_STEPS = 3
 AUDIO_LIMITER_STEPS = 10     # the card-vs-CPU check, limiter stream
+AUDIO_PROFILED = 3           # element form: rounds under the profiler
+AUDIO_EOS_STEPS = 4          # element form: the EOS pair's full frames
 
 
 def log(*args) -> None:
@@ -365,7 +382,30 @@ def device_events(fn, n: int):
             if e.device_type == torch.autograd.DeviceType.CUDA], wall
 
 
-def audio_phase(gstpu_torch, dev, smi) -> dict:
+def audio_banks(dev):
+    """The audio inputs of phases 6 and 7, made on the card from SEED:
+    the 3 s priming bank (B, 30 frames) and the AUDIO_BANK one-frame
+    banks (B, 1 frame) of every stream, flattened interleaved."""
+    from gstpu_torch.ops.loudnorm_dev import FRAME, GAIN_LOOKAHEAD
+    C = AUDIO_CHANNELS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = audio_signal(GAIN_LOOKAHEAD * C, 440.0, gen, dev)
+    bank = [audio_signal(FRAME * C, 300.0 + 40 * k, gen, dev)
+            for k in range(AUDIO_BANK)]
+    torch.cuda.synchronize()
+    return x0, bank
+
+
+def pair_inputs(x0, bank, steps: int, dev) -> list:
+    """The card-vs-CPU pair: stream 0 of the bench input and a stream
+    that drives the limiter; the priming block, then `steps` frames."""
+    n_prime, n_step = x0.shape[1], bank[0].shape[1]
+    x = [torch.cat([x0[:1], limiter_signal(n_prime, 440.0, dev)])]
+    return x + [torch.cat([bank[k][:1], limiter_signal(
+        n_step, 300.0 + 40 * k, dev)]) for k in range(steps)]
+
+
+def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     """6. The audio flagship chain at full width, its checks and its
     per-stage and per-kernel times."""
     from gstpu_torch.ops import loudnorm_dev as ln
@@ -378,11 +418,6 @@ def audio_phase(gstpu_torch, dev, smi) -> dict:
     args = (AUDIO_INTENSITY, AUDIO_FEEDBACK)
     prime, step, init, n_prime, n_step = make_audiofx_exact_chain(
         channels=C, echo_delay=AUDIO_DELAY, max_delay=AUDIO_DELAY)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    x0 = audio_signal(n_prime, 440.0, gen, dev)
-    bank = [audio_signal(n_step, 300.0 + 40 * k, gen, dev)
-            for k in range(AUDIO_BANK)]
-    torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     state, out = prime(init(B, device=dev), x0, *args)
@@ -493,10 +528,7 @@ def audio_phase(gstpu_torch, dev, smi) -> dict:
 
     # 2 streams on the card against the same 2 on the CPU: stream 0 of
     # the bench input, and a stream that drives the limiter
-    x2 = [torch.cat([x0[:1], limiter_signal(n_prime, 440.0, dev)])]
-    x2 += [torch.cat([bank[k][:1], limiter_signal(n_step, 300.0 + 40 * k,
-                                                  dev)])
-           for k in range(AUDIO_LIMITER_STEPS)]
+    x2 = pair_inputs(x0, bank, AUDIO_LIMITER_STEPS, dev)
     runs = []
     for where in (dev, torch.device("cpu")):
         st2, o = prime(init(2, device=where), x2[0].to(where), *args)
@@ -590,6 +622,330 @@ def audio_phase(gstpu_torch, dev, smi) -> dict:
             "check_limiter_iterations": card_loops,
             "echo_pipeline_max_abs_diff": echo_diff,
             "jit_kernels": rows}
+
+
+def element_launch(ctx: str, block: int) -> str:
+    """The flagship chain as users write it: every element a member of
+    DeviceContext `ctx` (bench_batch.py's string)."""
+    caps = (f"audio/x-raw, format=F64LE, rate=192000, "
+            f"channels={AUDIO_CHANNELS}, layout=interleaved")
+    return (f'appsrc name=src caps="{caps}" ! '
+            f'rsaudioecho delay=250000000 max-delay=250000000 '
+            f'intensity={AUDIO_INTENSITY} feedback={AUDIO_FEEDBACK} '
+            f'context={ctx} context-block={block} ! '
+            f'audioloudnorm context={ctx} ! '
+            f'ebur128level context={ctx} mode=momentary,short-term ! '
+            f'appsink name=sink')
+
+
+def run_eos_pair(gstpu_torch, where, xs: list, tail) -> tuple:
+    """Two element-form pipelines in one context on `where`, fed the
+    rows of xs (the priming block, then frames) and a partial frame
+    `tail`, then EOS: each stream's output (the EOS drain included) and
+    the loudnorm decisions after every round and after EOS."""
+    from gstpu_torch.runtime.device_batch import DeviceContext
+    gstpu_torch.init(device=where)
+    name = "chip-smoke-eos"
+    DeviceContext.release(name)
+    block = xs[1].shape[1]
+    ctx = DeviceContext.acquire(name, block)
+    pipes = [gstpu_torch.parse_launch(element_launch(name, block))
+             for _ in range(2)]
+    for p in pipes:
+        p.set_state(gstpu_torch.State.PLAYING)
+
+    def fused_decisions(ln):
+        return [ln["gidx"]] + [ln[k].cpu().tolist() for k in (
+            "lstate", "env_cnt", "sus", "above", "bcount")]
+
+    trace = []
+    for k, x in enumerate(xs + [tail]):
+        for i, p in enumerate(pipes):
+            p.get_by_name("src").push_buffer(gstpu_torch.Buffer(
+                x[i].to(where), pts=(0 if k == 0 else 29 + k) * 100_000_000))
+            while p.iterate():
+                pass
+        if k < len(xs):
+            # the fused loudnorm stage's batched state after this round
+            trace.append(fused_decisions(ctx._batched[1][1]))
+    for p in pipes:
+        p.get_by_name("src").end_of_stream()
+        p.run()
+    # after EOS each chain holds its own state: the same entries, one
+    # list over the two streams as the batched ones above
+    lns = [c.stages[1].owner.state for c in ctx.chains]
+    trace.append([[ln["gidx"] for ln in lns]] + [
+        [ln[k].item() for ln in lns]
+        for k in ("lstate", "env_cnt", "sus", "above", "bcount")])
+    outs = [np.concatenate([np.asarray(b.array).reshape(-1)
+                            for b in p.get_by_name("sink").pull_all()])
+            for p in pipes]
+    for p in pipes:
+        p.set_state(gstpu_torch.State.NULL)
+    DeviceContext.release(name)
+    return outs, trace
+
+
+def element_audio_phase(gstpu_torch, dev, smi, x0, bank, hand) -> dict:
+    """7a. The flagship chain in its element form: AUDIO_STREAMS
+    parse_launch pipelines of `rsaudioecho ! audioloudnorm !
+    ebur128level` sharing one DeviceContext (depth 2), fed DeviceRow
+    rows of phase 6's banks. Checks every lane against
+    make_audiofx_exact_chain bit for bit, the fused meter, and an EOS
+    pair on the card against the CPU; times the rounds and the host
+    time inside the context beside phase 6's hand-fused step (`hand`)."""
+    from gstpu_torch.ops import loudnorm_dev as ln
+    from gstpu_torch.parallel.chains import make_audiofx_exact_chain
+    from gstpu_torch.runtime.device_batch import DeviceContext, DeviceRow
+    B, C = AUDIO_STREAMS, AUDIO_CHANNELS
+    block = ln.FRAME * C
+    args = (AUDIO_INTENSITY, AUDIO_FEEDBACK)
+    n_rounds = AUDIO_SETTLE + AUDIO_TIMED + AUDIO_PROFILED
+    frames = [bank[k % AUDIO_BANK] for k in range(n_rounds)]
+
+    # the reference: the hand-fused chain at B=96 on the same banks
+    prime, step, init, _, _ = make_audiofx_exact_chain(
+        channels=C, echo_delay=AUDIO_DELAY, max_delay=AUDIO_DELAY)
+    st, out = prime(init(B, device=dev), x0, *args)
+    ref = [out]
+    for k, x in enumerate(frames):
+        if k == AUDIO_SETTLE:            # its timed steps, as phase 6's
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        st, out, _ = step(st, x, *args)
+        ref.append(out)
+        if k == AUDIO_SETTLE + AUDIO_TIMED - 1:
+            torch.cuda.synchronize()
+            direct_ms = (time.perf_counter() - t0) * 1e3 / AUDIO_TIMED
+    del st
+    torch.cuda.synchronize()
+
+    gstpu_torch.init(device=dev)
+    name = "chip-smoke-audio"
+    DeviceContext.release(name)
+    ctx = DeviceContext.acquire(name, block, depth=2)
+    pipes = [gstpu_torch.parse_launch(element_launch(name, block))
+             for _ in range(B)]
+    for p in pipes:
+        p.set_state(gstpu_torch.State.PLAYING)
+    srcs = [p.get_by_name("src") for p in pipes]
+    sinks = [p.get_by_name("sink") for p in pipes]
+
+    # host seconds inside the context's entry points (inclusive: submit
+    # holds the fire, a fire the composed step and the distribution of
+    # the batch before it)
+    host = {"submit": 0.0, "_fire": 0.0, "_distribute": 0.0, "step": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            host[key] += time.perf_counter() - t0
+            return r
+        return wrapper
+
+    for key in ("submit", "_fire", "_distribute"):
+        setattr(ctx, key, timed(getattr(ctx, key), key))
+    rounds = iter(range(n_rounds))
+
+    def push_round(x=None):
+        k = None if x is not None else next(rounds)
+        for i, p in enumerate(pipes):
+            srcs[i].push_buffer(gstpu_torch.Buffer(
+                DeviceRow(frames[k] if x is None else x, i),
+                pts=(0 if x is not None else 30 + k) * 100_000_000))
+            while p.iterate():
+                pass
+
+    t0 = time.perf_counter()
+    push_round(x0)                       # the 3 s priming round
+    for _ in range(AUDIO_SETTLE):
+        push_round()
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    # the chains are built: time the composed step inside each fire
+    step_fn, prime_fn, n_stages, final_fn = ctx._fused
+    ctx._fused = (timed(step_fn, "step"), prime_fn, n_stages, final_fn)
+    for key in host:
+        host[key] = 0.0
+    t0 = time.perf_counter()
+    for _ in range(AUDIO_TIMED):
+        push_round()
+    enqueue = time.perf_counter() - t0
+    ctx.flush_pending()                  # hand out the last round
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host_ms = {k: v * 1e3 / AUDIO_TIMED for k, v in host.items()}
+    rt = B * AUDIO_TIMED * 0.1 / wall
+    on_dev, window = device_events(push_round, AUDIO_PROFILED)
+    ctx.flush_pending()
+    busy_ms = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3
+    profile = {"kernels_per_round": len(on_dev) / AUDIO_PROFILED,
+               "busy_ms_per_round": busy_ms / AUDIO_PROFILED,
+               "wall_ms_per_round": window * 1e3 / AUDIO_PROFILED,
+               "busy_share": busy_ms / (window * 1e3)}
+    log(f"[element] {B} parse_launch pipelines in one DeviceContext "
+        f"(depth 2), {AUDIO_TIMED} rounds of 100 ms in {wall * 1e3:.3f} "
+        f"ms: {rt:.2f}x realtime; enqueued in {enqueue * 1e3:.3f} ms; "
+        f"host ms a round inside submit {host_ms['submit']:.3f}, _fire "
+        f"{host_ms['_fire']:.3f}, its step {host_ms['step']:.3f}, "
+        f"_distribute {host_ms['_distribute']:.3f} of "
+        f"{wall * 1e3 / AUDIO_TIMED:.3f} wall; the same {AUDIO_TIMED} "
+        f"steps of make_audiofx_exact_chain just before: {direct_ms:.3f} "
+        f"ms a step; priming + settling {settle_s:.3f} s  [{smi}]")
+    log(f"[element] profiler, {AUDIO_PROFILED} rounds: {profile}; phase "
+        f"6's hand-fused step: {hand['rt']:.2f}x, "
+        f"{hand['wall_ms'] / AUDIO_TIMED:.3f} ms a step, "
+        f"{hand['profile']['kernels_per_step']} kernels a step")
+
+    # every lane, prime and every round, against the hand-fused chain
+    lane_bad = 0
+    for i, s in enumerate(sinks):
+        if len(s.samples) != n_rounds + 1 or not all(
+                isinstance(b.data, DeviceRow) and b.data.idx == i
+                for b in s.samples):
+            raise AssertionError(f"element lane {i} gave {len(s.samples)} "
+                                 f"buffers, not {n_rounds + 1} batch rows")
+    for r in range(n_rounds + 1):
+        got = torch.stack([s.samples[r].data.tensor() for s in sinks])
+        lane_bad += int((got != ref[r]).any(dim=1).sum())
+    log(f"[element] {B} lanes x (prime + {n_rounds} rounds) against "
+        f"make_audiofx_exact_chain at B={B}: {lane_bad} lane outputs "
+        f"differ")
+    if lane_bad:
+        raise AssertionError("the element form differs from the "
+                             "hand-fused chain")
+    levels = [[m.fields["shortterm-loudness"] for m in p.bus.drain()
+               if getattr(m, "name", "") == "ebur128-level"]
+              for p in pipes]
+    last_st = [lv[-1] for lv in levels if lv]
+    if len(last_st) != B or max(abs(v + 24.0) for v in last_st) > 1.0:
+        raise AssertionError(f"fused meter: last short-term loudness "
+                             f"{min(last_st, default=None)} .. "
+                             f"{max(last_st, default=None)} LUFS")
+    log(f"[element] fused meter, last short-term of each lane: "
+        f"{min(last_st):.4f} .. {max(last_st):.4f} LUFS (target -24)")
+    # torn down without EOS, as bench_batch.py does: a B=1 drain of
+    # every stream is not the path under test here
+    t0 = time.perf_counter()
+    for p in pipes:
+        p.set_state(gstpu_torch.State.NULL)
+    teardown_s = time.perf_counter() - t0
+    DeviceContext.release(name)
+    del ref, pipes, srcs, sinks
+
+    # two streams to EOS, card against CPU, one driving the limiter
+    xs = pair_inputs(x0, bank, AUDIO_EOS_STEPS, dev)
+    tail = xs[1][:, : block // 2]        # a partial last frame
+    (card_outs, card_trace), (cpu_outs, cpu_trace) = (
+        run_eos_pair(gstpu_torch, where, xs, tail)
+        for where in (dev, torch.device("cpu")))
+    gstpu_torch.init(device=dev)
+    n_flat = xs[0].shape[1] + AUDIO_EOS_STEPS * block + block // 2
+    eos_diff = max(float(np.abs(a - b).max())
+                   for a, b in zip(card_outs, cpu_outs))
+    lim_states = [t[1][1] for t in card_trace]
+    log(f"[element] EOS pair, card vs CPU, prime + {AUDIO_EOS_STEPS} "
+        f"frames + half a frame + the EOS drain ({card_outs[0].size} "
+        f"samples a stream): max |diff| {eos_diff}, decisions "
+        f"{'identical' if card_trace == cpu_trace else 'DIFFER'}; the "
+        f"limiter stream's state after each round and after EOS "
+        f"{lim_states}")
+    if any(o.size != n_flat for o in card_outs + cpu_outs) \
+            or not eos_diff <= 1e-12 or card_trace != cpu_trace:
+        raise AssertionError("the element form's EOS pair differs between "
+                             "the card and the CPU")
+    if set(lim_states) == {ln.OUT}:
+        raise AssertionError("the EOS pair did not drive the limiter")
+    return {"B": B, "rt": rt, "wall_ms_per_round": wall * 1e3 / AUDIO_TIMED,
+            "enqueue_ms_per_round": enqueue * 1e3 / AUDIO_TIMED,
+            "host_ms_per_round": host_ms, "profile": profile,
+            "direct_ms_per_step": direct_ms,
+            "settle_s": settle_s, "teardown_s": teardown_s,
+            "lanes_differing": lane_bad,
+            "last_shortterm_lufs": [min(last_st), max(last_st)],
+            "eos_pair_max_abs_diff": eos_diff,
+            "eos_pair_limiter_states": lim_states,
+            "hand_fused": {"rt": hand["rt"],
+                           "wall_ms_per_step": hand["wall_ms"] / AUDIO_TIMED,
+                           "enqueue_ms_per_step":
+                               hand["enqueue_ms"] / AUDIO_TIMED,
+                           "kernels_per_step":
+                               hand["profile"]["kernels_per_step"]}}
+
+
+def element_video_phase(gstpu_torch, dev, smi, lut, bank, kernels,
+                        hsv: str) -> dict:
+    """7b. Four `appsrc ! hsvfilter ! colorlut ! appsink` pipelines
+    sharing one DeviceContext at 4K RGBA, fed CUDA tensors: one launch of
+    each kernel a fire, every frame equal to the unbatched wrappers'
+    output (phase 4's path) bit for bit; frames a second."""
+    from gstpu_torch.ops.hsv import hsv_filter_frame
+    from gstpu_torch.ops.lut import apply_lut_3d
+    from gstpu_torch.runtime.device_batch import DeviceContext
+    want = [apply_lut_3d(hsv_filter_frame(f, (0, 1, 2), *HSV_PARAMS[0]),
+                         lut.table, *LUT_DOMAIN, packed=lut.packed)
+            for f in bank]
+    gstpu_torch.init(device=dev)
+    name = "chip-smoke-video"
+    DeviceContext.release(name)
+    caps = f"video/x-raw, format=RGBA, width={W}, height={H}, framerate=30/1"
+    pipes = []
+    for _ in range(4):
+        p = gstpu_torch.parse_launch(
+            f'appsrc name=src caps="{caps}" ! hsvfilter {hsv} '
+            f'context={name} ! colorlut name=cl context={name} ! '
+            f'appsink name=sink')
+        p.get_by_name("cl").set_lut(lut)
+        p.set_state(gstpu_torch.State.PLAYING)
+        pipes.append(p)
+    sinks = [p.get_by_name("sink") for p in pipes]
+
+    def push_round(k: int) -> list:
+        for i, p in enumerate(pipes):
+            p.get_by_name("src").push_buffer(gstpu_torch.Buffer(
+                bank[(k + i) % 4], pts=k * 33_333_333))
+            while p.iterate():
+                pass
+        return [s.pull_all() for s in sinks]
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    ctx = DeviceContext.acquire(name)
+    checked = 0
+    for k in range(4):                   # every frame checked
+        for i, bufs in enumerate(push_round(k)):
+            if len(bufs) != 1 or not torch.equal(
+                    bufs[0].data.tensor(), want[(k + i) % 4]):
+                raise AssertionError(f"batched 4K frame, round {k} lane "
+                                     f"{i}, differs from the unbatched "
+                                     f"chain")
+            checked += 1
+    rounds = 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sum(len(b) for k in range(4, 4 + rounds) for b in push_round(k))
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fires = ctx.fire_count
+    launches = {k.name: k.launches for k in kernels}
+    for p in pipes:
+        p.set_state(gstpu_torch.State.NULL)
+    DeviceContext.release(name)
+    fps = got / dt
+    log(f"[element] 4 x `hsvfilter ! colorlut` in one DeviceContext, 4K "
+        f"RGBA tensors: {checked} frames equal the unbatched chain; "
+        f"{got} frames in {dt * 1e3:.3f} ms: {fps:.2f} fps, enqueued in "
+        f"{enqueue * 1e3:.3f} ms; {fires} fires, launches {launches}  "
+        f"[{smi}]")
+    if got != 4 * rounds or any(n != fires for n in launches.values()):
+        raise AssertionError("the batched video chain does not launch "
+                             "each kernel once a fire")
+    return {"fps": fps, "frames": got, "frames_checked": checked,
+            "fires": fires, "launches": launches,
+            "enqueue_ms": enqueue * 1e3, "wall_ms": dt * 1e3}
 
 
 def main() -> int:
@@ -911,9 +1267,26 @@ def main() -> int:
         rows.append(row)
 
     # 6. the audio flagship chain
-    audio = audio_phase(gstpu_torch, dev, smi)
+    t6 = time.monotonic()
+    x0, audio_bank = audio_banks(dev)
+    audio = audio_phase(gstpu_torch, dev, smi, x0, audio_bank)
+
+    # 7. the element form through DeviceContext: the audio chain as 96
+    # parse_launch pipelines, the 4K chain batched through both kernels
+    t7 = time.monotonic()
+    element = {"audio": element_audio_phase(gstpu_torch, dev, smi, x0,
+                                            audio_bank, audio)}
+    del x0, audio_bank
+    element["video"] = element_video_phase(gstpu_torch, dev, smi, lut_dev,
+                                           bank, kernels, hsv)
+    element["phase_s"] = {"6": t7 - t6, "7": time.monotonic() - t7}
+    log(f"[time] phase 6 {t7 - t6:.1f} s, phase 7 "
+        f"{element['phase_s']['7']:.1f} s")
+    for row in rows:
+        row["launches_context"] = element["video"]["launches"][row["name"]]
 
     log(json.dumps({"audio": audio}))
+    log(json.dumps({"element": element}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ _MODULES = [
     "gstpu_torch.elements.video.hsv",
     "gstpu_torch.elements.video.colorlut",
     "gstpu_torch.elements.audio.audiofx",
+    "gstpu_torch.elements.audio.loudnorm",
 ]
 
 _registered = False

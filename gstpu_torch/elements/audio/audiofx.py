@@ -1,13 +1,12 @@
 """rsaudioecho: echo/reverb on tensors.
 
-The port of gstpu's rsaudioecho (gstpu/elements/audio/audiofx.py), its
-per-buffer device path: a host buffer is uploaded once to the element's
-device, the echo runs there (gstpu_torch.ops.echo) with the tail state
-on that device, and the result stays a tensor in `buf.data`.
-
-The `context` property (DeviceContext batching of many pipelines into
-one dispatch) is not ported yet: an element with `context` set refuses
-to start instead of running unbatched.
+The port of gstpu's rsaudioecho (gstpu/elements/audio/audiofx.py). On
+its own, a host buffer is uploaded once to the element's device, the
+echo runs there (gstpu_torch.ops.echo) with the tail state on that
+device, and the result stays a tensor in `buf.data`. With `context`
+set, the element joins that DeviceContext (gstpu_torch.runtime.
+device_batch): its stream runs batched with every other member's, as
+one step per block round, and the outputs leave from the chain's tail.
 """
 
 from __future__ import annotations
@@ -22,6 +21,8 @@ from gstpu_torch.core.element import PadDirection, PadPresence, PadTemplate
 from gstpu_torch.core.props import Mutability, Property
 from gstpu_torch.core.registry import Rank, register_element
 from gstpu_torch.ops.echo import echo_block, make_state
+from gstpu_torch.runtime.device_batch import (DeviceContext, DeviceRow,
+                                              _is_device)
 
 SECOND = 1_000_000_000
 
@@ -56,8 +57,14 @@ class AudioEcho(AudioFilter):
     feedback = Property(float, default=0.0, minimum=0.0, maximum=1.0,
                         mutable=Mutability.PLAYING)
     context = Property(str, default=None, mutable=Mutability.READY,
-                       blurb="DeviceContext name (not ported yet: an "
-                             "element with it set does not start)")
+                       blurb="DeviceContext name: elements sharing it "
+                             "run as ONE batched step per block round "
+                             "(threadshare context analogue)")
+    context_block = Property(int, default=None, minimum=64,
+                             mutable=Mutability.READY,
+                             blurb="Batch block size in flattened "
+                                   "samples (context members agree; "
+                                   "default 19200)")
 
     def __init__(self, name=None):
         super().__init__(name)
@@ -65,14 +72,17 @@ class AudioEcho(AudioFilter):
         self._delay_samples = 0
         self._size = 0
         self._device: torch.device | None = None
+        self._ctx = None
 
     def start(self) -> bool:
-        if self.context:
-            raise NotImplementedError(
-                f"rsaudioecho context={self.context!r}: DeviceContext "
-                f"batching is not ported to gstpu_torch yet; unset "
-                f"`context` to run the per-buffer device path")
         self._device = default_device()
+        # join the batching window BEFORE data flows (threadshare's
+        # Context::acquire in the READY state change): membership is
+        # complete before the first batch can fire
+        if self.context:
+            self._ctx = DeviceContext.acquire(self.context,
+                                              self.context_block)
+            self._ctx.add_member(self)
         return True
 
     def setup(self, info: AudioInfo) -> bool:
@@ -82,16 +92,59 @@ class AudioEcho(AudioFilter):
         d = max((self.delay * info.rate * info.channels) // SECOND, 1)
         self._delay_samples = min(d, size)
         self._size = size
-        self._tail = make_state((), size, device=self._device)
+        if self._ctx is not None:
+            self._ctx.finalize_member(self)
+            self._tail = None
+        else:
+            self._tail = make_state((), size, device=self._device)
         return True
 
-    def transform_ip(self, buf: Buffer) -> None:
+    # -- DeviceContext contract (runtime/device_batch.py) ---------------
+    def device_batch_spec(self) -> dict:
+        d, size, device = self._delay_samples, self._size, self._device
+
+        def step(states, x, intensity, feedback):
+            return echo_block(states, x, intensity, feedback, delay=d)
+
+        return dict(key=("rsaudioecho", d, size),
+                    step=step,
+                    init_state=lambda: make_state((), size, device=device),
+                    uniforms=lambda: (self.intensity, self.feedback),
+                    # echo_block handles any width: required when this
+                    # element feeds a priming stage (audioloudnorm's
+                    # 3 s first frame) in a fused chain
+                    wide_ok=True)
+
+    def make_batch_buffer(self, flat, pts, dur) -> Buffer:
+        if isinstance(flat, DeviceRow):
+            return Buffer(flat, pts=pts, duration=dur)
+        return Buffer(flat.reshape(-1, self.audio_info.channels),
+                      pts=pts, duration=dur)
+
+    def transform_ip(self, buf: Buffer):
         info = self.audio_info
+        if self._ctx is not None:
+            data = buf.data if _is_device(buf.data) \
+                else info.view(buf).reshape(-1)
+            self._ctx.submit(self, data, buf.pts,
+                             info.rate * info.channels)
+            return []                   # outputs flow from the batch
         x = info.tensor(buf, self._device).reshape(-1)
         self._tail, out = echo_block(
             self._tail, x.to(self._tail.device), self.intensity,
             self.feedback, delay=self._delay_samples)
         buf.data = out.reshape(-1, info.channels)
+
+    def drain(self) -> list[Buffer]:
+        if self._ctx is not None:
+            return self._ctx.flush_member(self)
+        return []
+
+    def stop(self) -> bool:
+        if self._ctx is not None:
+            self._ctx.remove_member(self)
+            self._ctx = None
+        return super().stop()
 
     def flush(self) -> None:
         if self._tail is not None:

@@ -260,3 +260,13 @@ def make_block_biquad(b: np.ndarray, a: np.ndarray, L: int = 64):
         return y.reshape(B, N), new_state
 
     return apply
+
+
+def biquad_reference(x: np.ndarray, b: np.ndarray, a: np.ndarray,
+                     state: np.ndarray | None = None):
+    """scipy.signal.lfilter golden (sequential, host)."""
+    from scipy.signal import lfilter
+    if state is None:
+        state = np.zeros(x.shape[:-1] + (2,))
+    y, zf = lfilter(b, a, x, axis=-1, zi=state)
+    return y, zf

@@ -21,7 +21,6 @@ from gstpu.ops.echo import echo_reference
 from gstpu.parallel import chains as jchains
 from gstpu_torch.core.audio import AudioInfo
 from gstpu_torch.core.buffer import Buffer
-from gstpu_torch.core.element import StateChangeReturn
 from gstpu_torch.parallel import chains
 
 B = 4
@@ -221,12 +220,37 @@ def test_rsaudioecho_takes_tensor_buffers_f32():
 
 
 def test_rsaudioecho_context_is_refused_not_ignored():
+    """`context` is honoured, not ignored: two rsaudioecho pipelines
+    naming one context run as one batched step per block round, and
+    each stream equals the strict golden."""
+    from gstpu_torch.runtime.device_batch import DeviceContext
     gstpu_torch.init(device="cpu")
-    el = gstpu_torch.make("rsaudioecho", context="streams")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        el.start()
-    assert el.set_state(gstpu_torch.State.READY) is \
-        StateChangeReturn.FAILURE
+    DeviceContext.release("streams")
+    caps = "audio/x-raw, format=F64LE, rate=48000, channels=1"
+    pipes = [gstpu_torch.parse_launch(
+        f'appsrc name=src caps="{caps}" ! rsaudioecho delay=10000000 '
+        f'max-delay=20000000 intensity=0.6 feedback=0.2 context=streams '
+        f'context-block=1000 ! appsink name=sink') for _ in range(2)]
+    for p in pipes:
+        p.set_state(gstpu_torch.State.PLAYING)
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-1, 1, size=(2, 3000))
+    ctx = DeviceContext.acquire("streams")
+    for k in range(3):
+        for i, p in enumerate(pipes):
+            p.get_by_name("src").push_buffer(
+                Buffer(x[i, k * 1000:(k + 1) * 1000, None]))
+            while p.iterate():
+                pass
+        assert ctx.fire_count == k + 1
+    for i, p in enumerate(pipes):
+        bufs = p.get_by_name("sink").pull_all()
+        p.set_state(gstpu_torch.State.NULL)
+        out = np.concatenate([np.asarray(b.array).reshape(-1)
+                              for b in bufs])
+        np.testing.assert_array_equal(
+            out, echo_reference(x[i], 480, 960, 0.6, 0.2, fma=False))
+    DeviceContext.release("streams")
 
 
 def test_audio_info_tensor():

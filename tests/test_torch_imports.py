@@ -44,11 +44,12 @@ def test_no_jax_or_gstpu_imports(path):
     ("ops/hsv.py", {"hsv_filter_frame"}),
     ("ops/lut.py", {"apply_lut_3d"}),
     ("kernels/__init__.py", {"CudaKernel", "build_all"}),
+    ("runtime/device_batch.py", {"DeviceContext", "AuxView", "DeviceRow"}),
 ])
 def test_kernel_wrappers_have_no_fallback_handlers(path, names):
-    """No try/except around a kernel's build or launch: a kernel that
-    fails raises to the caller instead of handing over to the plain
-    version."""
+    """No try/except around a kernel's build or launch, or a batched
+    fire or copy: a kernel that fails raises to the caller instead of
+    handing over to the plain version."""
     tree = ast.parse((ROOT / "gstpu_torch" / path).read_text())
     defs = [n for n in tree.body if getattr(n, "name", None) in names]
     assert len(defs) == len(names)
@@ -80,6 +81,10 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.ops.hsv, gstpu_torch.ops.lut\n"
             "import gstpu_torch.ops.loudnorm_dev\n"
             "import gstpu_torch.parallel.chains\n"
+            "import gstpu_torch.parallel.checkpoint\n"
+            "import gstpu_torch.runtime.device_batch\n"
+            "import gstpu_torch.elements.audio.loudnorm\n"
+            "import gstpu_torch.ops.ebur128, gstpu_torch.core.adapter\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu')]\n"
             "print(len(sys.modules), bad)\n"
@@ -115,19 +120,32 @@ def test_port_has_its_own_registry():
 
 
 def test_rsaudioecho_with_context_raises():
-    """DeviceContext batching is not ported: asking for it stops the
-    element from starting rather than running it unbatched."""
+    """A context-block that disagrees with the context the element
+    joins stops the element from starting: the members of one context
+    share one block."""
+    from gstpu_torch.runtime.device_batch import DeviceContext
     gstpu_torch.init(device="cpu")
-    el = gstpu_torch.make("rsaudioecho", context="ctx")
-    with pytest.raises(NotImplementedError, match="context"):
+    DeviceContext.release("ctx")
+    DeviceContext.acquire("ctx", 512)
+    el = gstpu_torch.make("rsaudioecho", context="ctx", context_block=256)
+    with pytest.raises(ValueError, match="context-block"):
         el.start()
+    DeviceContext.release("ctx")
 
 
 def test_rsaudioecho_has_no_context_block():
-    """The DeviceContext block size is not a property of the port's
-    element until DeviceContext is: a launch string naming it fails."""
+    """Without `context-block` the element names no block (the context
+    keeps its own, 19200 by default); a launch string's context-block is
+    read and becomes the block of the context it creates."""
+    from gstpu_torch.runtime.device_batch import DeviceContext
     gstpu_torch.init(device="cpu")
-    with pytest.raises(KeyError, match="context-block"):
-        gstpu_torch.parse_launch(
-            "audiotestsrc num-buffers=1 ! rsaudioecho context-block=256 "
-            "! fakesink")
+    assert gstpu_torch.make("rsaudioecho").context_block is None
+    DeviceContext.release("cb")
+    p = gstpu_torch.parse_launch(
+        "audiotestsrc num-buffers=1 ! rsaudioecho name=e context=cb "
+        "context-block=256 ! fakesink")
+    assert p.get_by_name("e").context_block == 256
+    p.set_state(gstpu_torch.State.READY)
+    assert DeviceContext.acquire("cb").block == 256
+    p.set_state(gstpu_torch.State.NULL)
+    DeviceContext.release("cb")
