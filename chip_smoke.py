@@ -58,11 +58,38 @@ of every kernel library in DIR and needs no card.)
    CPU: samples within 1e-12, decisions identical; (b) four 4K
    `appsrc ! hsvfilter ! colorlut ! appsink` pipelines sharing one
    context, fed CUDA tensors: every fire launches each kernel once,
-   each frame equals the unbatched wrappers' output bit for bit; fps.
+   each frame equals the unbatched wrappers' output bit for bit; fps;
+8. runs audiornnoise at full width (the published RNNoise widths,
+   weights made from SEED, 96 mono streams of 48 kHz, context-block 4800
+   = 10 frames): (a) make_device_gru_denoiser in f64 and f32 and
+   make_device_denoiser on banks made on the card, each with lane 0 of
+   a 1-stream run bit for bit against the 96-stream run, 2 streams
+   against the numpy oracle (DenoiseState) over 20 frames (f64 within
+   1e-9 x 32767 and VAD within 1e-12; f32 within 8.0), and a block's
+   kernels, device time and bound; (b) 96 `appsrc ! audiornnoise
+   model-location=W context=R context-block=4800 ! appsink` pipelines in
+   one context (depth 2) fed DeviceRow rows: a first round, settling,
+   timed and profiled rounds, every lane bit for bit against the f64
+   step at B=96; the realtime multiple, the host ms a round inside the
+   context, kernels and busy share a round; (c) one engine=device
+   pipeline on the card against engine=host, within 1e-6;
+9. runs the binaural render at bench_hrtf.py's and bench_sofa.py's
+   configurations: (a) `appsrc ! hrtfrender ! appsink` on the card (16
+   channels, block 512, 8 steps, IR 512, directions and gains changed
+   mid-stream) within 1e-5 of the CPU; (b) 32 streams through ols_block
+   as bench_hrtf.make_step, lane 0 within 4e-6 of the element on the
+   card, and its realtime multiple; (c) upc_block at 48 streams x 6
+   channels, block 256, partition 64, IR 512, a 24-point ring and a yaw
+   step with crossfade every 16 blocks: within 1e-5 of the output's peak
+   of the CPU, the blockwise run against partition-sized calls and one
+   call (reported, within the same), and its realtime multiple. No
+   h5py: the sofalizer element reads a SOFA file, so its ops run here
+   and the element in the CPU tests.
 
-It prints one JSON line each of the audio chain and of the element form,
-the card's name and power limit, one JSON line of kernels and last
-`{"ok": true, "device": {...}}`. Any failed phase raises, and the
+It prints one JSON line each of the audio chain, of the element form, of
+audiornnoise and of the binaural render, the card's name and power
+limit, one JSON line of kernels and last `{"ok": true, "device":
+{...}}`. Any failed phase raises, and the
 script then exits non-zero without that last line; so does a machine
 without CUDA or a directory without the gstpu_torch package.
 """
@@ -122,6 +149,22 @@ AUDIO_CHECK_STEPS = 3
 AUDIO_LIMITER_STEPS = 10     # the card-vs-CPU check, limiter stream
 AUDIO_PROFILED = 3           # element form: rounds under the profiler
 AUDIO_EOS_STEPS = 4          # element form: the EOS pair's full frames
+# the f64 rate outside the tensor cores (NVIDIA's H100 SXM data sheet);
+# the device denoisers' products and sums run there
+F64_OPS_PER_S = 34e12
+# audiornnoise (phase 8): 96 mono streams at 48 kHz, context-block 4800
+# (10 frames of 480, 100 ms), the published RNNoise widths with weights
+# made from SEED
+RN_STREAMS = 96
+RN_FRAMES = 10
+RN_BANK, RN_SETTLE, RN_TIMED, RN_PROFILED = 8, 3, 20, 3
+RN_CHECK_BLOCKS = 2          # 20 frames: lanes, oracle and engine checks
+# binaural render (phase 9): bench_hrtf.py's and bench_sofa.py's
+# configurations
+HRTF_RATE, HRTF_BLOCK, HRTF_STEPS, HRTF_IR = 44_100, 512, 8, 512
+HRTF_CHANNELS, HRTF_STREAMS, HRTF_TIMED = 16, 32, 100
+SOFA_BLOCK, SOFA_PART, SOFA_IR, SOFA_CHANNELS = 256, 64, 512, 6
+SOFA_RING, SOFA_ROT_EVERY, SOFA_STREAMS, SOFA_TIMED = 24, 16, 48, 200
 
 
 def log(*args) -> None:
@@ -624,6 +667,16 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
             "jit_kernels": rows}
 
 
+def timed(fn, key: str, acc: dict):
+    """fn, adding the host seconds of each call to acc[key]."""
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        acc[key] += time.perf_counter() - t0
+        return r
+    return wrapper
+
+
 def element_launch(ctx: str, block: int) -> str:
     """The flagship chain as users write it: every element a member of
     DeviceContext `ctx` (bench_batch.py's string)."""
@@ -735,17 +788,8 @@ def element_audio_phase(gstpu_torch, dev, smi, x0, bank, hand) -> dict:
     # holds the fire, a fire the composed step and the distribution of
     # the batch before it)
     host = {"submit": 0.0, "_fire": 0.0, "_distribute": 0.0, "step": 0.0}
-
-    def timed(fn, key):
-        def wrapper(*a, **kw):
-            t0 = time.perf_counter()
-            r = fn(*a, **kw)
-            host[key] += time.perf_counter() - t0
-            return r
-        return wrapper
-
     for key in ("submit", "_fire", "_distribute"):
-        setattr(ctx, key, timed(getattr(ctx, key), key))
+        setattr(ctx, key, timed(getattr(ctx, key), key, host))
     rounds = iter(range(n_rounds))
 
     def push_round(x=None):
@@ -765,7 +809,8 @@ def element_audio_phase(gstpu_torch, dev, smi, x0, bank, hand) -> dict:
     settle_s = time.perf_counter() - t0
     # the chains are built: time the composed step inside each fire
     step_fn, prime_fn, n_stages, final_fn = ctx._fused
-    ctx._fused = (timed(step_fn, "step"), prime_fn, n_stages, final_fn)
+    ctx._fused = (timed(step_fn, "step", host), prime_fn, n_stages,
+                  final_fn)
     for key in host:
         host[key] = 0.0
     t0 = time.perf_counter()
@@ -946,6 +991,582 @@ def element_video_phase(gstpu_torch, dev, smi, lut, bank, kernels,
     return {"fps": fps, "frames": got, "frames_checked": checked,
             "fires": fires, "launches": launches,
             "enqueue_ms": enqueue * 1e3, "wall_ms": dt * 1e3}
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float) -> tuple:
+    """The least time (ms) for the work and what bounds it: the bytes
+    over the memory rate, or the operations over the peak rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def profile_calls(fn, n: int) -> dict:
+    """Kernels launched and device busy ms a call of fn, and its wall ms
+    under the profiler, over n calls after one warm call."""
+    fn()
+    kern, wall = device_events(fn, n)
+    return {"kernels_per_call": len(kern) / n,
+            "busy_ms": sum(e.time_range.elapsed_us() for e in kern)
+            / (1e3 * n),
+            "wall_ms": wall * 1e3 / n}
+
+
+def rnnoise_weights(rng) -> dict:
+    """Random weights at the published RNNoise shapes (dense 42->24,
+    GRUs of 24, 48 and 96 units, heads of 22 and 1), as
+    tests/test_rnnoise_device.py makes them."""
+    def gru(inputs, units):
+        return {"W": rng.normal(0, 0.1, (3 * units, inputs)),
+                "U": rng.normal(0, 0.1, (3 * units, units)),
+                "b": rng.normal(0, 0.1, 3 * units)}
+    w = {"input_dense_W": rng.normal(0, 0.1, (24, 42)),
+         "input_dense_b": rng.normal(0, 0.1, 24),
+         "denoise_output_W": rng.normal(0, 0.1, (22, 96)),
+         "denoise_output_b": rng.normal(0, 0.1, 22),
+         "vad_output_W": rng.normal(0, 0.1, (1, 24)),
+         "vad_output_b": rng.normal(0, 0.1, 1)}
+    for name, d in (("vad_gru", gru(24, 24)),
+                    ("noise_gru", gru(90, 48)),
+                    ("denoise_gru", gru(114, 96))):
+        for k, v in d.items():
+            w[f"{name}_{k}"] = v
+    return w
+
+
+def rnnoise_banks(dev) -> list:
+    """RN_BANK consecutive 100 ms blocks of RN_STREAMS mono streams in
+    [-1, 1], made on the card from SEED: a voiced tone of each stream's
+    own pitch (110-300 Hz, 4 harmonics) gated on and off at 2 Hz, plus
+    0.03 gaussian noise."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n = RN_FRAMES * 480
+    t = torch.arange(RN_BANK * n, dtype=torch.float64, device=dev) / 48_000
+    f0 = 110.0 + 2.0 * torch.arange(RN_STREAMS, dtype=torch.float64,
+                                    device=dev)[:, None]
+    voiced = sum(torch.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 5))
+    gate = (torch.sin(2 * np.pi * 2.0 * t) > -0.2).to(torch.float64)
+    x = 0.25 * voiced * gate + 0.03 * torch.randn(
+        (RN_STREAMS, RN_BANK * n), generator=gen, dtype=torch.float64,
+        device=dev)
+    return [x[:, k * n:(k + 1) * n].contiguous() for k in range(RN_BANK)]
+
+
+def run_rnnoise_pipeline(gstpu_torch, where, launch: str, x) -> np.ndarray:
+    """`launch` (appsrc name=src ... appsink name=sink) on `where`, fed
+    the rows of x (host f32) one 100 ms block a buffer, to EOS."""
+    gstpu_torch.init(device=where)
+    p = gstpu_torch.parse_launch(launch)
+    p.set_state(gstpu_torch.State.PLAYING)
+    src = p.get_by_name("src")
+    for k, row in enumerate(x):
+        src.push_buffer(gstpu_torch.Buffer(row.reshape(-1, 1),
+                                           pts=k * 100_000_000))
+        while p.iterate():
+            pass
+    src.end_of_stream()
+    p.run()
+    out = np.concatenate([np.asarray(b.array).reshape(-1)
+                          for b in p.get_by_name("sink").pull_all()])
+    p.set_state(gstpu_torch.State.NULL)
+    return out
+
+
+def rnnoise_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
+    """8. audiornnoise at full width: (a) the device denoisers on banks
+    made on the card, lanes, the numpy oracle and their device time;
+    (b) RN_STREAMS pipelines in one DeviceContext fed DeviceRow rows,
+    every lane against the step at B=RN_STREAMS bit for bit; (c) one
+    engine=device pipeline against engine=host."""
+    from gstpu_torch.ops.rnnoise import (DenoiseState, GruModel,
+                                         make_device_denoiser,
+                                         make_device_gru_denoiser)
+    from gstpu_torch.runtime.device_batch import DeviceContext, DeviceRow
+    B, n = RN_STREAMS, RN_FRAMES * 480
+    weights = rnnoise_weights(np.random.default_rng(SEED))
+    wpath = tmp / "rnnoise.npz"
+    np.savez(wpath, **weights)
+    banks = rnnoise_banks(dev)
+    scaled = [b * 32767.0 for b in banks]
+    den = {"gru_f64": make_device_gru_denoiser(weights, RN_FRAMES,
+                                               torch.float64),
+           "gru_f32": make_device_gru_denoiser(weights, RN_FRAMES,
+                                               torch.float32),
+           "spectral": make_device_denoiser(RN_FRAMES)}
+    res = {"streams": B, "block": n, "denoisers": {}}
+
+    # (a) lane 0 of B=1 against B=96, and 2 streams against the oracle
+    x2 = torch.cat(scaled[:RN_CHECK_BLOCKS], 1)[:2]
+    x2_host = x2.cpu().numpy()
+    oracles = {}
+    for kind, w in (("gru", weights), ("spectral", None)):
+        out, vad = np.zeros_like(x2_host), []
+        for s in range(2):
+            ds = DenoiseState(GruModel(w) if w else None)
+            for f in range(x2_host.shape[1] // 480):
+                out[s, f * 480:(f + 1) * 480], v = ds.process_frame(
+                    x2_host[s, f * 480:(f + 1) * 480])
+                vad.append(v)
+        oracles[kind] = (out, np.asarray(vad).reshape(2, -1))
+    for kind, (step, init) in den.items():
+        lanes = {}
+        for b in (B, 1):
+            st, outs = init(b, dev), []
+            for k in range(RN_CHECK_BLOCKS):
+                st, out, vad = step(st, scaled[k][:b])
+                outs += [out[0], vad[0]]
+            lanes[b] = outs + [v[0] for v in st.values()]
+        lane_same = all(torch.equal(a, c) for a, c in zip(lanes[1], lanes[B]))
+        _, out2, vad2 = step(init(2, dev), x2)
+        want_out, want_vad = oracles[kind.split("_")[0]]
+        err = float(np.abs(out2.double().cpu().numpy() - want_out).max())
+        verr = float(np.abs(vad2.double().cpu().numpy() - want_vad).max())
+        tol = 8.0 if kind == "gru_f32" else 1e-9 * 32767
+        st = init(B, dev)
+        prof = profile_calls(lambda: step(st, scaled[0]), 3)
+        # least work a block: each input sample read and output written
+        # once (f64 or f32) and the state read and written once; the
+        # GRU chain's operations are counted for its pitch correlation
+        # alone (769 x 960 multiply-adds a stream and frame), the gate's
+        # for its two 960-point real FFTs (2.5 n log2 n each) and its
+        # two 481 x 22 band products
+        item = 4 if kind == "gru_f32" else 8
+        state_bytes = sum(v.numel() * v.element_size()
+                          for v in st.values())
+        n_bytes = 2 * B * n * item + 2 * state_bytes
+        if kind == "spectral":
+            ops = B * RN_FRAMES * (2 * 2.5 * 960 * np.log2(960)
+                                   + 2 * 2 * 481 * 22)
+        else:
+            ops = B * RN_FRAMES * 769 * 960 * 2
+        rate = F32_OPS_PER_S if kind == "gru_f32" else F64_OPS_PER_S
+        b_ms, b_by = bound(n_bytes, ops, rate)
+        row = {"lane0_b1_equals_b96": lane_same, "oracle_max_abs_err": err,
+               "oracle_vad_max_abs_err": verr, "oracle_tol": tol,
+               **prof, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": n_bytes, "ops": ops}
+        res["denoisers"][kind] = row
+        log(f"[rnnoise] {kind}: lane 0 of B=1 vs B={B} over "
+            f"{RN_CHECK_BLOCKS} blocks "
+            f"{'bit for bit' if lane_same else 'DIFFERS'}; "
+            f"2 streams x {x2.shape[1] // 480} frames vs the numpy oracle: "
+            f"output max |err| {err:.3e} (gate {tol:.3e}, +-32767 scale), "
+            f"VAD {verr:.3e}; a block at B={B}: "
+            f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms "
+            f"busy, {prof['wall_ms']:.4f} ms wall; bound {b_ms:.4f} ms "
+            f"({b_by})  [{smi}]")
+        if not lane_same:
+            raise AssertionError(f"{kind}: lane 0 of the 1-stream run "
+                                 f"differs from the {B}-stream run")
+        if not err < tol or (kind != "gru_f32" and not verr < 1e-12):
+            raise AssertionError(f"{kind} on the card differs from the "
+                                 f"numpy oracle")
+        del st
+
+    # (b) the element form: B pipelines in one context, DeviceRow rows
+    step, init = den["gru_f64"]
+    n_rounds = 1 + RN_SETTLE + RN_TIMED + RN_PROFILED
+    frames = [banks[k % RN_BANK] for k in range(n_rounds)]
+    st, ref = init(B, dev), []
+    for x in frames:
+        st, out, _ = step(st, x * 32767.0)
+        ref.append(out / 32767.0)
+    del st
+    gstpu_torch.init(device=dev)
+    name = "chip-smoke-rnnoise"
+    DeviceContext.release(name)
+    ctx = DeviceContext.acquire(name, n, depth=2)
+    caps = ("audio/x-raw, format=F32LE, rate=48000, channels=1, "
+            "layout=interleaved")
+    pipes = [gstpu_torch.parse_launch(
+        f'appsrc name=src caps="{caps}" ! audiornnoise '
+        f'model-location={wpath} context={name} context-block={n} ! '
+        f'appsink name=sink') for _ in range(B)]
+    for p in pipes:
+        p.set_state(gstpu_torch.State.PLAYING)
+    srcs = [p.get_by_name("src") for p in pipes]
+    sinks = [p.get_by_name("sink") for p in pipes]
+    host = {"submit": 0.0, "_fire": 0.0, "_distribute": 0.0}
+    for key in host:
+        setattr(ctx, key, timed(getattr(ctx, key), key, host))
+    rounds = iter(range(n_rounds))
+
+    def push_round():
+        k = next(rounds)
+        for i, p in enumerate(pipes):
+            srcs[i].push_buffer(gstpu_torch.Buffer(
+                DeviceRow(frames[k], i), pts=k * 100_000_000))
+            while p.iterate():
+                pass
+
+    t0 = time.perf_counter()
+    for _ in range(1 + RN_SETTLE):           # the first fire, settling
+        push_round()
+    ctx.flush_pending()
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    for key in host:
+        host[key] = 0.0
+    t0 = time.perf_counter()
+    for _ in range(RN_TIMED):
+        push_round()
+    enqueue = time.perf_counter() - t0
+    ctx.flush_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host_ms = {k: v * 1e3 / RN_TIMED for k, v in host.items()}
+    rt = B * RN_TIMED * 0.1 / wall
+    on_dev, window = device_events(push_round, RN_PROFILED)
+    ctx.flush_pending()
+    busy_ms = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3
+    profile = {"kernels_per_round": len(on_dev) / RN_PROFILED,
+               "busy_ms_per_round": busy_ms / RN_PROFILED,
+               "wall_ms_per_round": window * 1e3 / RN_PROFILED,
+               "busy_share": busy_ms / (window * 1e3)}
+    bad = 0
+    for i, s in enumerate(sinks):
+        if len(s.samples) != n_rounds or not all(
+                isinstance(b.data, DeviceRow) and b.data.idx == i
+                for b in s.samples):
+            raise AssertionError(f"rnnoise lane {i} gave {len(s.samples)} "
+                                 f"buffers, not {n_rounds} batch rows")
+    for r in range(n_rounds):
+        got = torch.stack([s.samples[r].data.tensor() for s in sinks])
+        bad += int((got != ref[r]).any(dim=1).sum())
+    for p in pipes:
+        p.set_state(gstpu_torch.State.NULL)
+    DeviceContext.release(name)
+    del ref, pipes, srcs, sinks
+    log(f"[rnnoise] {B} `appsrc ! audiornnoise model-location=W context=R "
+        f"context-block={n} ! appsink` pipelines (depth 2), {RN_TIMED} "
+        f"rounds of 100 ms in {wall * 1e3:.3f} ms: {rt:.2f}x realtime; "
+        f"enqueued in {enqueue * 1e3:.3f} ms; host ms a round inside "
+        f"submit {host_ms['submit']:.3f}, _fire {host_ms['_fire']:.3f}, "
+        f"_distribute {host_ms['_distribute']:.3f}; first fire + settling "
+        f"{settle_s:.3f} s; profiler, {RN_PROFILED} rounds: {profile}; "
+        f"{bad} lane outputs of {B} x {n_rounds} rounds differ from the "
+        f"step at B={B}  [{smi}]")
+    if bad:
+        raise AssertionError("the audiornnoise element form differs from "
+                             "make_device_gru_denoiser at B=96")
+    res["context"] = {"rt": rt, "wall_ms_per_round": wall * 1e3 / RN_TIMED,
+                      "enqueue_ms_per_round": enqueue * 1e3 / RN_TIMED,
+                      "host_ms_per_round": host_ms, "profile": profile,
+                      "settle_s": settle_s, "lanes_differing": bad}
+
+    # (c) engine=device on the card against engine=host, stream 0
+    x = torch.cat(banks[:RN_CHECK_BLOCKS], 1)[0].reshape(
+        RN_CHECK_BLOCKS, -1).float().cpu().numpy()
+    launch = (f'appsrc name=src caps="{caps}" ! audiornnoise '
+              f'model-location={wpath} engine={{}} ! appsink name=sink')
+    t0 = time.perf_counter()
+    on_card = run_rnnoise_pipeline(gstpu_torch, dev,
+                                   launch.format("device"), x)
+    card_s = time.perf_counter() - t0
+    on_host = run_rnnoise_pipeline(gstpu_torch, "cpu",
+                                   launch.format("host"), x)
+    gstpu_torch.init(device=dev)
+    eng_err = float(np.abs(on_card - on_host).max())
+    log(f"[rnnoise] engine=device on the card vs engine=host, "
+        f"{on_card.size} samples: max |diff| {eng_err:.3e} (gate 1e-6); "
+        f"{card_s:.3f} s on the card")
+    if on_card.size != x.size or not eng_err <= 1e-6:
+        raise AssertionError("audiornnoise engine=device differs from "
+                             "engine=host")
+    res["engine_device_vs_host_max_abs_diff"] = eng_err
+    return res
+
+
+def hrtf_sphere(rng, C: int):
+    """bench_hrtf.py's synthetic sphere (6 vertices, 8 faces, HRTF_IR
+    taps of decaying noise) as .hrir bytes, and C unit directions."""
+    from gstpu_torch.elements.audio.hrtf import HrirSphere
+    verts = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                      [0, 0, 1], [0, 0, -1]], np.float64)
+    faces = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                      [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int32)
+    decay = np.exp(-np.arange(HRTF_IR) / 80.0)[None, :].astype(np.float32)
+    left = rng.standard_normal((6, HRTF_IR)).astype(np.float32) * decay
+    right = rng.standard_normal((6, HRTF_IR)).astype(np.float32) * decay
+    raw = HrirSphere.to_bytes(verts, faces, left, right, HRTF_RATE)
+    dirs = np.array([[np.cos(2 * np.pi * c / C), 0.2,
+                      np.sin(2 * np.pi * c / C)] for c in range(C)])
+    return raw, dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+
+
+def run_hrtf_element(gstpu_torch, where, path: Path, blocks, schedule):
+    """`appsrc ! hrtfrender hrir-location=path ! appsink` on `where` at
+    bench_hrtf.py's block and steps, fed `blocks` ((HRTF_BLOCK, C) f32)
+    with schedule[k] (spatial objects) set before block k; the stereo
+    output."""
+    gstpu_torch.init(device=where)
+    C = blocks[0].shape[1]
+    caps = (f"audio/x-raw, format=F32LE, rate={HRTF_RATE}, channels={C}, "
+            f"layout=interleaved")
+    p = gstpu_torch.parse_launch(
+        f'appsrc name=src caps="{caps}" ! hrtfrender name=r '
+        f'hrir-location={path} block-length={HRTF_BLOCK} '
+        f'interpolation-steps={HRTF_STEPS} ! appsink name=sink')
+    r, src = p.get_by_name("r"), p.get_by_name("src")
+    p.set_state(gstpu_torch.State.PLAYING)
+    for k, blk in enumerate(blocks):
+        if k in schedule:
+            r.set_property("spatial_objects", schedule[k])
+        src.push_buffer(gstpu_torch.Buffer(blk))
+        while p.iterate():
+            pass
+    src.end_of_stream()
+    p.run()
+    out = np.concatenate([np.asarray(b.array).reshape(-1, 2)
+                          for b in p.get_by_name("sink").pull_all()])
+    p.set_state(gstpu_torch.State.NULL)
+    return out
+
+
+def sofa_ring(rng):
+    """bench_sofa.py's SOFA content, made here without a file: a
+    SOFA_RING-point azimuth ring and decaying-noise HRIRs (M, 2, L)."""
+    pos = np.stack([np.arange(SOFA_RING) * (360.0 / SOFA_RING),
+                    np.zeros(SOFA_RING), np.full(SOFA_RING, 1.5)], axis=1)
+    irs = rng.standard_normal((SOFA_RING, 2, SOFA_IR)).astype(np.float32)
+    irs *= np.exp(-np.arange(SOFA_IR) / 100.0)[None, None, :] \
+        .astype(np.float32)
+    return pos, irs
+
+
+def sofa_select(pos, yaw: float) -> np.ndarray:
+    """Sofalizer._select_irs for SOFA_CHANNELS speakers at listener yaw
+    `yaw`: the nearest measurement to each rotated speaker."""
+    from gstpu_torch.elements.audio.hrtf import _LAYOUT_AZIMUTHS, _sph_to_vec
+    azi, ele = np.radians(pos[:, 0]), np.radians(pos[:, 1])
+    vecs = np.stack([np.cos(ele) * np.sin(azi), np.sin(ele),
+                     np.cos(ele) * np.cos(azi)], axis=1)
+    return np.asarray([int(np.argmax(vecs @ _sph_to_vec(az - yaw, 0.0)))
+                       for az in _LAYOUT_AZIMUTHS[SOFA_CHANNELS]])
+
+
+def binaural_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
+    """9. hrtfrender and the sofalizer's convolution at bench_hrtf.py's
+    and bench_sofa.py's configurations: (a) the element on the card
+    against the CPU, directions changing mid-stream; (b) HRTF_STREAMS
+    streams through ols_block as bench_hrtf.make_step, lane 0 against
+    the element; (c) upc_block with a yaw step and crossfade every
+    SOFA_ROT_EVERY blocks, against the CPU, blockwise against one call."""
+    from gstpu_torch.ops.fftconv import (next_pow2, ols_block, upc_block,
+                                         upc_init, upc_ir_rfft)
+    res = {}
+    rng = np.random.default_rng(SEED + 9)
+    C = HRTF_CHANNELS
+    raw, dirs = hrtf_sphere(rng, C)
+    path = tmp / "bench.hrir"
+    path.write_bytes(raw)
+
+    def objects(d, gains):
+        return [{"x": float(v[0]), "y": float(v[1]), "z": float(v[2]),
+                 "distance-gain": float(g)} for v, g in zip(d, gains)]
+
+    # (a) static, then new directions and gains (interpolated per step)
+    blocks = [(rng.standard_normal((HRTF_BLOCK, C)) * 0.3)
+              .astype(np.float32) for _ in range(6)]
+    turned = dirs[:, [2, 1, 0]] * np.array([1.0, -1.0, 1.0])
+    schedule = {0: objects(dirs, np.ones(C)),
+                3: objects(turned, np.linspace(0.5, 1.5, C))}
+    card = run_hrtf_element(gstpu_torch, dev, path, blocks, schedule)
+    plain = run_hrtf_element(gstpu_torch, "cpu", path, blocks, schedule)
+    gstpu_torch.init(device=dev)
+    el_err = float(np.abs(card - plain).max())
+    log(f"[binaural] hrtfrender, {C} channels, block {HRTF_BLOCK}, "
+        f"{HRTF_STEPS} steps, IR {HRTF_IR}, 6 blocks (directions change "
+        f"at block 3): card vs CPU max |diff| {el_err:.3e} (gate 1e-5)")
+    if card.shape != (6 * HRTF_BLOCK, 2) or not el_err < 1e-5:
+        raise AssertionError("hrtfrender on the card differs from the CPU")
+    res["hrtfrender_card_vs_cpu_max_abs_diff"] = el_err
+
+    # (b) the batched static-direction step, lane 0 against the element
+    from gstpu_torch.elements.audio.hrtf import HrirSphere
+    sphere = HrirSphere.from_bytes(raw)
+    sub = HRTF_BLOCK // HRTF_STEPS
+    nfft = next_pow2(sub + HRTF_IR - 1)
+    irs = torch.from_numpy(np.stack([sphere.sample(d) for d in dirs])
+                           .astype(np.float32)).to(dev)
+
+    def hrtf_step(hist, x):
+        """hist (B*C, 1, L-1); x (B, C, N) -> (hist, (B, 2, N))."""
+        B = x.shape[0]
+        ir_f = torch.fft.rfft(irs, n=nfft, dim=-1).repeat(B, 1, 1)
+        xf = x.reshape(B * C, 1, -1)
+        segs = []
+        for k in range(HRTF_STEPS):
+            hist, y = ols_block(hist, xf[..., k * sub:(k + 1) * sub], ir_f,
+                                ir_len=HRTF_IR)
+            segs.append(torch.sum(y.reshape(B, C, 2, sub), dim=1))
+        return hist, torch.cat(segs, dim=-1)
+
+    B = HRTF_STREAMS
+    x_par = blocks[:4]
+    el = run_hrtf_element(gstpu_torch, dev, path, x_par,
+                          {0: objects(dirs, np.ones(C))})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bank = [0.3 * torch.randn((B, C, HRTF_BLOCK), generator=gen, device=dev)
+            for _ in range(8)]
+    hist = torch.zeros((B * C, 1, HRTF_IR - 1), device=dev)
+    outs = []
+    for k, blk in enumerate(x_par):
+        x = bank[k].clone()
+        x[0] = torch.from_numpy(blk.T).to(dev)
+        hist, y = hrtf_step(hist, x)
+        outs.append(y[0].T.cpu().numpy())
+    lane_err = float(np.abs(np.concatenate(outs) - el).max())
+    hist = torch.zeros_like(hist)
+    ir_f = torch.fft.rfft(irs, n=nfft).repeat(B, 1, 1)
+    seg = bank[0].reshape(B * C, 1, -1)[..., :sub]
+    prof = profile_calls(lambda: ols_block(hist, seg, ir_f,
+                                           ir_len=HRTF_IR), 5)
+    for k in range(4):
+        hist, y = hrtf_step(hist, bank[k % 8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(HRTF_TIMED):
+        hist, y = hrtf_step(hist, bank[i % 8])
+    float(y.sum())
+    wall = time.perf_counter() - t0
+    rt = B * HRTF_TIMED * HRTF_BLOCK / HRTF_RATE / wall
+    F = nfft // 2 + 1
+    n_bytes = (B * C * (2 * (HRTF_IR - 1) + sub) * 4 + B * C * 2 * F * 8
+               + B * C * 2 * sub * 4)
+    ops = B * C * (3 * 2.5 * nfft * np.log2(nfft) + 2 * F * 6)
+    b_ms, b_by = bound(n_bytes, ops, F32_OPS_PER_S)
+    res["ols_block"] = {"calls_per_block": HRTF_STEPS, **prof,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "bytes": n_bytes, "ops": ops}
+    res["hrtf_batched"] = {"streams": B, "rt": rt,
+                           "lane0_vs_element_max_abs_diff": lane_err}
+    log(f"[binaural] {B} streams x {C} channels through ols_block "
+        f"(bench_hrtf.make_step): lane 0 vs the element on the card max "
+        f"|diff| {lane_err:.3e} "
+        f"({'bit for bit' if lane_err == 0 else 'gate 4e-6'}); "
+        f"{HRTF_TIMED} blocks in {wall * 1e3:.3f} ms: {rt:.2f}x realtime; "
+        f"ols_block a call: {prof['kernels_per_call']} kernels, "
+        f"{prof['busy_ms']:.4f} ms busy, bound {b_ms:.5f} ms ({b_by})  "
+        f"[{smi}]")
+    if not lane_err < 4e-6:
+        raise AssertionError("the batched hrtf step differs from the "
+                             "element")
+    del bank, hist
+
+    # (c) the sofalizer's UPC at bench_sofa.py's configuration
+    pos, irs_all = sofa_ring(rng)
+    B, C, S, P = SOFA_STREAMS, SOFA_CHANNELS, SOFA_BLOCK, SOFA_PART
+
+    def render(state, x, irs_cur):
+        Bx = x.shape[0]
+        h_f = upc_ir_rfft(irs_cur, part_len=P).repeat(Bx, 1, 1, 1)
+        st, y = upc_block(state, x.reshape(Bx * C, 1, -1), h_f,
+                          part_len=P)
+        return st, torch.sum(y.reshape(Bx, C, 2, -1), dim=1)
+
+    def render_fade(state, x, irs_old, irs_new):
+        _, y_old = render(state, x, irs_old)
+        st, y_new = render(state, x, irs_new)
+        ramp = torch.linspace(0.0, 1.0, y_new.shape[-1],
+                              dtype=torch.float64, device=x.device)
+        return st, y_old * (1 - ramp) + y_new * ramp
+
+    yaws = [15.0 * k for k in range(SOFA_RING)]
+    sel = [irs_all[sofa_select(pos, y)] for y in yaws]
+    n_chk = SOFA_ROT_EVERY + 4
+    xs = (rng.standard_normal((n_chk, B, C, S)) * 0.3).astype(np.float32)
+
+    def rotating_run(where):
+        ir_bank = [torch.from_numpy(s).to(where) for s in sel]
+        state = upc_init((B * C, 1), SOFA_IR, P, device=where)
+        rot, outs = 0, []
+        for i in range(n_chk):
+            x = torch.from_numpy(xs[i]).to(where)
+            if i % SOFA_ROT_EVERY == SOFA_ROT_EVERY - 1:
+                rot += 1
+                state, y = render_fade(state, x, ir_bank[rot - 1],
+                                       ir_bank[rot])
+            else:
+                state, y = render(state, x, ir_bank[rot])
+            outs.append(y.cpu().numpy())
+        return outs
+
+    card_outs = rotating_run(dev)
+    cpu_outs = rotating_run(torch.device("cpu"))
+    upc_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(card_outs, cpu_outs))
+    # the outputs sum 6 channels of 512-tap convolutions and peak near
+    # 25, where an f32 ulp is 1.9e-6: the gate is 1e-5 of the peak
+    peak = max(float(np.abs(b).max()) for b in cpu_outs)
+    # blockwise (S a call, as the element) against the partition
+    # granularity (P a call) and one call over 4 blocks, static filter
+    irs0 = torch.from_numpy(sel[0]).to(dev)
+    x4 = torch.from_numpy(np.concatenate(xs[:4], axis=-1)).to(dev)
+
+    def static(blk):
+        state = upc_init((B * C, 1), SOFA_IR, P, device=dev)
+        outs = []
+        for j in range(x4.shape[-1] // blk):
+            state, y = render(state, x4[..., j * blk:(j + 1) * blk], irs0)
+            outs.append(y)
+        return torch.cat(outs, dim=-1)
+
+    y_blk = static(S)
+    gran = {"partition": float((static(P) - y_blk).abs().max()),
+            "one_call": float((static(4 * S) - y_blk).abs().max())}
+    h_f0 = upc_ir_rfft(irs0, part_len=P).repeat(B, 1, 1, 1)
+    state = upc_init((B * C, 1), SOFA_IR, P, device=dev)
+    x0 = x4[..., :S].reshape(B * C, 1, S)
+    prof = profile_calls(lambda: upc_block(state, x0, h_f0, part_len=P), 5)
+    ir_bank = [torch.from_numpy(s).to(dev) for s in sel]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bank = [0.3 * torch.randn((B, C, S), generator=gen, device=dev)
+            for _ in range(8)]
+    for k in range(4):
+        state, y = render(state, bank[k], ir_bank[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rot = 0
+    for i in range(SOFA_TIMED):
+        if i % SOFA_ROT_EVERY == SOFA_ROT_EVERY - 1:
+            rot += 1
+            state, y = render_fade(state, bank[i % 8],
+                                   ir_bank[(rot - 1) % SOFA_RING],
+                                   ir_bank[rot % SOFA_RING])
+        else:
+            state, y = render(state, bank[i % 8], ir_bank[rot % SOFA_RING])
+    float(y.sum())
+    wall = time.perf_counter() - t0
+    rt = B * SOFA_TIMED * S / HRTF_RATE / wall
+    K, F = -(-SOFA_IR // P), P + 1
+    n_bytes = (B * C * (2 * (K - 1) * F * 8 + 2 * P * 4 + S * 4)
+               + B * C * 2 * K * F * 8 + B * C * 2 * S * 4)
+    n_fr = S // P
+    ops = B * C * (n_fr * 2.5 * 2 * P * np.log2(2 * P)
+                   + 2 * n_fr * (K * F * 8 + 2.5 * 2 * P * np.log2(2 * P)))
+    b_ms, b_by = bound(n_bytes, ops, F32_OPS_PER_S)
+    res["upc_block"] = {"calls_per_block": 1, **prof, "bound_ms": b_ms,
+                        "bound_by": b_by, "bytes": n_bytes, "ops": ops}
+    res["sofa"] = {"streams": B, "rt": rt, "card_vs_cpu_max_abs_diff":
+                   upc_err, "output_peak": peak,
+                   "granularity_max_abs_diff": gran}
+    log(f"[binaural] upc_block at bench_sofa.py's configuration ({B} "
+        f"streams x {C} channels, block {S}, partition {P}, IR {SOFA_IR}, "
+        f"a {SOFA_RING}-point ring, yaw step + crossfade every "
+        f"{SOFA_ROT_EVERY} blocks): card vs CPU over {n_chk} blocks max "
+        f"|diff| {upc_err:.3e} on outputs of peak {peak:.4f} (gate 1e-5 "
+        f"of the peak); against 4 blocks in S-sample "
+        f"calls, P-sample calls max |diff| {gran['partition']}, one call "
+        f"{gran['one_call']}; {SOFA_TIMED} blocks in {wall * 1e3:.3f} ms: "
+        f"{rt:.2f}x realtime; upc_block a call: "
+        f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms "
+        f"busy, bound {b_ms:.5f} ms ({b_by})  [{smi}]")
+    if not upc_err < 1e-5 * max(1.0, peak) \
+            or not max(gran.values()) < 1e-5 * max(1.0, peak):
+        raise AssertionError("upc_block on the card differs from the CPU "
+                             "or from its own one-call run")
+    return res
 
 
 def main() -> int:
@@ -1280,13 +1901,23 @@ def main() -> int:
     element["video"] = element_video_phase(gstpu_torch, dev, smi, lut_dev,
                                            bank, kernels, hsv)
     element["phase_s"] = {"6": t7 - t6, "7": time.monotonic() - t7}
-    log(f"[time] phase 6 {t7 - t6:.1f} s, phase 7 "
-        f"{element['phase_s']['7']:.1f} s")
     for row in rows:
         row["launches_context"] = element["video"]["launches"][row["name"]]
 
+    # 8. audiornnoise at full width; 9. the binaural render
+    t8 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        rnnoise = rnnoise_phase(gstpu_torch, dev, smi, Path(tmp))
+        t9 = time.monotonic()
+        binaural = binaural_phase(gstpu_torch, dev, smi, Path(tmp))
+    element["phase_s"].update({"8": t9 - t8, "9": time.monotonic() - t9})
+    log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
+                              for k, v in element["phase_s"].items()))
+
     log(json.dumps({"audio": audio}))
     log(json.dumps({"element": element}))
+    log(json.dumps({"rnnoise": rnnoise}))
+    log(json.dumps({"binaural": binaural}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

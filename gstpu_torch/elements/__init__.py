@@ -17,6 +17,8 @@ _MODULES = [
     "gstpu_torch.elements.video.colorlut",
     "gstpu_torch.elements.audio.audiofx",
     "gstpu_torch.elements.audio.loudnorm",
+    "gstpu_torch.elements.audio.rnnoise",
+    "gstpu_torch.elements.audio.hrtf",
 ]
 
 _registered = False

@@ -76,6 +76,7 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_import_loads_neither_jax_nor_gstpu():
+    """Nor h5py: the sofalizer imports it only to read a SOFA file."""
     code = ("import sys, gstpu_torch\n"
             "gstpu_torch.init(device='cpu')\n"
             "import gstpu_torch.ops.hsv, gstpu_torch.ops.lut\n"
@@ -85,8 +86,12 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.runtime.device_batch\n"
             "import gstpu_torch.elements.audio.loudnorm\n"
             "import gstpu_torch.ops.ebur128, gstpu_torch.core.adapter\n"
+            "import gstpu_torch.core.harness, gstpu_torch.ops.rnnoise\n"
+            "import gstpu_torch.ops.fftconv\n"
+            "import gstpu_torch.elements.audio.rnnoise\n"
+            "import gstpu_torch.elements.audio.hrtf\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'gstpu')]\n"
+            "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -111,7 +116,7 @@ def test_port_has_its_own_registry():
     gstpu.init()
     gstpu_torch.init(device="cpu")
     for name in ("hsvfilter", "colorlut", "appsrc", "videotestsrc",
-                 "rsaudioecho"):
+                 "rsaudioecho", "audiornnoise", "hrtfrender", "sofalizer"):
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
         assert port.__module__.startswith("gstpu_torch.")
