@@ -84,10 +84,27 @@ of every kernel library in DIR and needs no card.)
    of the CPU, the blockwise run against partition-sized calls and one
    call (reported, within the same), and its realtime multiple. No
    h5py: the sofalizer element reads a SOFA file, so its ops run here
-   and the element in the CPU tests.
+   and the element in the CPU tests;
+10. runs hsvdetector and the codec device legs: (a) hsv_detect_frame
+   over the 2^24-colour cube in each RGBA-family layout for the CPU
+   tests' five parameter sets, bit for bit against the CPU, then four
+   4K `appsrc ! hsvdetector context= ! appsink` pipelines fed CUDA
+   tensors, the checked frames bit for bit against the unbatched
+   element, with fps and kernels a fire; (b) FFV1 at BASELINE config
+   5's 1080p I420: the residual fields of 8 seeded frames bit for bit
+   against the CPU and the numpy spec model, their time, and `ffv1enc`
+   fed CUDA tensors and host
+   frames, each stream byte for byte the CPU's, from the native coder,
+   with a small frame decoded back by the spec model; (c) the AV1
+   analyzer and transform on 8 frames at 1080p against the CPU (mode
+   maps and counts bit for bit, the reconstruction's differing bytes
+   counted, the bits within 1e-3) and their times, then `rav1enc
+   device-transform=true ! dav1ddec` on 4 frames where the codec shim
+   builds (one line says so where it does not).
 
 It prints one JSON line each of the audio chain, of the element form, of
-audiornnoise and of the binaural render, the card's name and power
+audiornnoise, of the binaural render, of hsvdetector and of the codec
+legs, the card's name and power
 limit, one JSON line of kernels and last `{"ok": true, "device":
 {...}}`. Any failed phase raises, and the
 script then exits non-zero without that last line; so does a machine
@@ -165,6 +182,32 @@ HRTF_RATE, HRTF_BLOCK, HRTF_STEPS, HRTF_IR = 44_100, 512, 8, 512
 HRTF_CHANNELS, HRTF_STREAMS, HRTF_TIMED = 16, 32, 100
 SOFA_BLOCK, SOFA_PART, SOFA_IR, SOFA_CHANNELS = 256, 64, 512, 6
 SOFA_RING, SOFA_ROT_EVERY, SOFA_STREAMS, SOFA_TIMED = 24, 16, 48, 200
+# hsvdetector (phase 10a): the CPU tests' parameter sets (hue_ref, hue_var,
+# sat_ref, sat_var, val_ref, val_var) and the RGBA-family layouts as
+# (r, g, b) and alpha offsets
+DETECT_PARAMS = [(0.0, 10.0, 0.0, 0.15, 0.0, 0.3),
+                 (359.9, 20.0, 0.5, 0.5, 0.5, 0.5),
+                 (0.1, 180.0, 1.0, 0.3, 1.0, 0.3),
+                 (120.0, 60.0, 0.0, 0.15, 0.0, 0.3),
+                 (200.5, 33.3, 0.7, 0.2, 0.4, 0.35)]
+DETECT_LAYOUTS = {"RGBA": ((0, 1, 2), 3), "BGRA": ((2, 1, 0), 3),
+                  "ARGB": ((1, 2, 3), 0), "ABGR": ((3, 2, 1), 0)}
+DETECT_ROUNDS = 100
+# the codec legs (phases 10b, 10c): BASELINE config 5's 1080p I420
+CODEC_W, CODEC_H, CODEC_FRAMES = 1920, 1080, 8
+AV1_QUANTIZER = 100          # rav1enc's default quantizer
+AV1_ELEMENT_FRAMES = 4
+# Hopper issues 64 INT32 lanes per SM and clock beside 128 FP32 (NVIDIA's
+# H100 architecture paper): half the f32 rate, for FFV1's integer fields
+I32_OPS_PER_S = F32_OPS_PER_S / 2
+# operations per sample or pixel, counted from the torch ops: the FFV1
+# field (neighbours 6, three gradients and their byte masks 6, three
+# table loads and their sum 5, median 6, fold and wrap 7); the
+# detector (RGB->HSV ~30, the window ~15); the AV1 analyzer (SADs 9,
+# the DCT's two passes 32, 16 grid steps of 6) and transform (both DCTs
+# 64, quantise, rebuild and round 10)
+OPS_PER_SAMPLE = {"ffv1_field": 30, "hsv_detect_frame": 45,
+                  "make_intra_analyzer": 137, "make_intra_transform": 74}
 
 
 def log(*args) -> None:
@@ -176,14 +219,15 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
                .abs().max())
 
 
-def colour_cube(layout: str, device) -> torch.Tensor:
-    """4096x4096 frame holding every 24-bit colour once, in `layout`;
-    the fourth channel, where there is one, holds a byte pattern."""
+def colour_cube(layout: str, device, rgb_idx=None) -> torch.Tensor:
+    """4096x4096 frame holding every 24-bit colour once, in `layout`
+    (its (r, g, b) offsets `rgb_idx`, LAYOUTS' by default); the fourth
+    channel, where there is one, holds a byte pattern."""
     p = torch.arange(1 << 24, device=device, dtype=torch.int32)
     rgb = [p & 255, (p >> 8) & 255, p >> 16]
     C = len(layout)
     chans = [(p * 7 + 3) & 255] * C
-    for k, i in enumerate(LAYOUTS[layout]):
+    for k, i in enumerate(rgb_idx or LAYOUTS[layout]):
         chans[i] = rgb[k]
     return torch.stack(chans, -1).to(torch.uint8).reshape(4096, 4096, C)
 
@@ -1569,6 +1613,368 @@ def binaural_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
     return res
 
 
+def detector_phase(gstpu_torch, dev, smi, bank, flush) -> dict:
+    """10a. hsvdetector: the 2^24-colour cube in each RGBA-family layout
+    for every parameter set of the CPU tests, the card against the
+    plain version on the CPU bit for bit; four 4K `appsrc ! hsvdetector
+    context= ! appsink` pipelines fed CUDA tensors, every checked frame
+    bit for bit against the unbatched element; fps, kernels a fire, and
+    the function's time against its bound."""
+    from gstpu_torch.ops.hsv import hsv_detect_frame
+    from gstpu_torch.runtime.device_batch import DeviceContext
+    res = {}
+    checked = 0
+    for params in DETECT_PARAMS:
+        ref = hsv_detect_frame(colour_cube("RGBA", "cpu"), (0, 1, 2),
+                               (0, 1, 2, 3), *params)
+        for layout, (rgb, a) in DETECT_LAYOUTS.items():
+            got = hsv_detect_frame(colour_cube(layout, dev, rgb), rgb,
+                                   (*rgb, a), *params).cpu()
+            want = torch.empty_like(ref)
+            for k, i in enumerate((*rgb, a)):
+                want[..., i] = ref[..., k]
+            if not torch.equal(got, want):
+                raise AssertionError(f"hsv_detect_frame {layout} {params} "
+                                     f"differs on the card")
+            checked += 1
+        log(f"[detector] hsv_detect_frame {params}: every colour in "
+            f"{', '.join(DETECT_LAYOUTS)} equals the CPU; "
+            f"{int((ref[..., 3] == 255).sum())} colours match")
+    res["cube_runs_bit_for_bit"] = checked
+
+    # four 4K pipelines in one context, against the unbatched element
+    params = DETECT_PARAMS[1]
+    keys = ("hue_ref", "hue_var", "saturation_ref", "saturation_var",
+            "value_ref", "value_var")
+    props = " ".join(f"{k}={v}" for k, v in zip(keys, params))
+    caps = f"video/x-raw, format=RGBA, width={W}, height={H}, framerate=30/1"
+    gstpu_torch.init(device=dev)
+
+    def pipes_for(ctx: str):
+        extra = f" context={ctx}" if ctx else ""
+        out = []
+        for _ in range(4):
+            p = gstpu_torch.parse_launch(
+                f'appsrc name=src caps="{caps}" ! hsvdetector {props}'
+                f'{extra} ! appsink name=sink')
+            p.set_state(gstpu_torch.State.PLAYING)
+            out.append(p)
+        return out
+
+    def push_round(pipes, k: int) -> list:
+        for i, p in enumerate(pipes):
+            p.get_by_name("src").push_buffer(gstpu_torch.Buffer(
+                bank[(k + i) % 4], pts=k * 33_333_333))
+            while p.iterate():
+                pass
+        return [p.get_by_name("sink").pull_all() for p in pipes]
+
+    def tensor(buf):
+        d = buf.data
+        return d if isinstance(d, torch.Tensor) else d.tensor()
+
+    single = pipes_for("")
+    unbatched = [tensor(b[0]) for b in push_round(single, 0)]
+    for p in single:
+        p.set_state(gstpu_torch.State.NULL)
+    name = "chip-smoke-detector"
+    DeviceContext.release(name)
+    pipes = pipes_for(name)
+    ctx = DeviceContext.acquire(name)
+    frames_checked = 0
+    for k in range(4):
+        for i, bufs in enumerate(push_round(pipes, k)):
+            want = hsv_detect_frame(bank[(k + i) % 4], (0, 1, 2),
+                                    (0, 1, 2, 3), *params)
+            if len(bufs) != 1 or not torch.equal(tensor(bufs[0]), want) \
+                    or (k == 0 and not torch.equal(want, unbatched[i])):
+                raise AssertionError(f"batched hsvdetector frame, round {k} "
+                                     f"lane {i}, differs from the unbatched "
+                                     f"element")
+            frames_checked += 1
+    fires0 = ctx.fire_count
+    kern, _ = device_events(lambda: push_round(pipes, 4), 5)
+    kernels_per_fire = len(kern) / (ctx.fire_count - fires0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sum(len(b) for k in range(DETECT_ROUNDS) for b in
+              push_round(pipes, 10 + k))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for p in pipes:
+        p.set_state(gstpu_torch.State.NULL)
+    DeviceContext.release(name)
+    if got != 4 * DETECT_ROUNDS:
+        raise AssertionError(f"the batched detector gave {got} frames")
+    fps = got / dt
+    frame = bank[0]
+    prof = profile_calls(lambda: hsv_detect_frame(
+        frame, (0, 1, 2), (0, 1, 2, 3), *params), 5)
+    ms = time_ms(lambda: hsv_detect_frame(frame, (0, 1, 2), (0, 1, 2, 3),
+                                          *params), flush)
+    n_bytes = 2 * frame.numel()
+    b_ms, b_by = bound(n_bytes, OPS_PER_SAMPLE["hsv_detect_frame"] * H * W,
+                       F32_OPS_PER_S)
+    res.update({"frames_checked": frames_checked, "fps": fps,
+                "frames": got, "kernels_per_fire": kernels_per_fire,
+                "hsv_detect_frame": {**prof, "ms": ms, "bound_ms": b_ms,
+                                     "bound_by": b_by, "bytes": n_bytes}})
+    log(f"[detector] 4 x `hsvdetector context=` at 4K RGBA, CUDA tensors: "
+        f"{frames_checked} frames equal the unbatched element; {got} frames "
+        f"in {dt * 1e3:.3f} ms: {fps:.2f} fps; {kernels_per_fire} kernels a "
+        f"fire; hsv_detect_frame a 4K frame: {ms:.4f} ms, "
+        f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms busy, "
+        f"bound {b_ms:.4f} ms ({b_by})  [{smi}]")
+    return res
+
+
+def codec_frames(rng, n: int, w: int, h: int) -> list:
+    """Natural-ish I420 frames: a gradient with texture and a moving box,
+    smooth chroma with noise (flat uint8, made from the seeded rng)."""
+    gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+    base = 50 + 140 * gx / w + 40 * gy / h + 12 * np.sin(gx / 7.0) \
+        * np.cos(gy / 11.0)
+    cw, ch = -(-w // 2), -(-h // 2)
+    out = []
+    for i in range(n):
+        y = base + 4 * rng.standard_normal((h, w))
+        x0 = (37 * i) % max(1, w - h // 4)
+        y[h // 4:h // 2, x0:x0 + h // 4] = 220 - 3 * i
+        u = 128 + 40 * np.sin((gx[:ch, :cw] + 9 * i) / 50.0) \
+            + 2 * rng.standard_normal((ch, cw))
+        v = 120 + 30 * np.cos(gy[:ch, :cw] / 40.0) \
+            + 2 * rng.standard_normal((ch, cw))
+        out.append(np.concatenate([np.clip(a, 0, 255).astype(np.uint8)
+                                   .ravel() for a in (y, u, v)]))
+    return out
+
+
+def i420_planes(flat: np.ndarray, w: int, h: int) -> list:
+    cw, ch = -(-w // 2), -(-h // 2)
+    return [flat[:w * h].reshape(h, w),
+            flat[w * h:w * h + cw * ch].reshape(ch, cw),
+            flat[w * h + cw * ch:].reshape(ch, cw)]
+
+
+def run_ffv1enc(gstpu_torch, where, payloads, w: int, h: int) -> tuple:
+    """`appsrc ! ffv1enc ! appsink` on `where`: the bitstream, the wall
+    seconds and whether the native coder ran."""
+    gstpu_torch.init(device=where)
+    p = gstpu_torch.parse_launch(
+        f'appsrc name=src caps="video/x-raw, format=I420, width={w}, '
+        f'height={h}, framerate=30/1" ! ffv1enc name=enc ! appsink '
+        f'name=sink')
+    src, enc = p.get_by_name("src"), p.get_by_name("enc")
+    p.set_state(gstpu_torch.State.PLAYING)
+    t0 = time.perf_counter()
+    native = None
+    for i, f in enumerate(payloads):
+        src.push_buffer(gstpu_torch.Buffer(f, pts=i * 33_333_333))
+        while p.iterate():
+            pass
+        native = enc._coder is not None and enc._model is None
+    src.end_of_stream()
+    p.run()
+    dt = time.perf_counter() - t0
+    out = [b.to_bytes() for b in p.get_by_name("sink").pull_all()]
+    p.set_state(gstpu_torch.State.NULL)
+    return out, dt, native
+
+
+def ffv1_phase(gstpu_torch, dev, smi, flush) -> dict:
+    """10b. FFV1 at 1080p I420: the residual fields of seeded frames on
+    the card against the plain version on the CPU and the numpy spec
+    model, with their time; then
+    ffv1enc fed CUDA tensors and fed host frames, each stream byte for
+    byte the CPU's, from the native coder; a small frame round-trips
+    through the spec model's decoder."""
+    from gstpu_torch.codecs import ffv1
+    from gstpu_torch.ops.ffv1_pred import Predictor, to_numpy
+    w, h = CODEC_W, CODEC_H
+    rng = np.random.default_rng(SEED + 12)
+    frames = codec_frames(rng, CODEC_FRAMES, w, h)
+    quant = ffv1.Params(w, h).quant
+    card, plain = Predictor(quant, dev), Predictor(quant, "cpu")
+    for i, flat in enumerate(frames):
+        flat_dev = torch.from_numpy(flat).to(dev)
+        got = to_numpy(card.dispatch_diff_i420(flat_dev, w, h), np.int8)
+        want = to_numpy(plain.dispatch_diff_i420(flat, w, h), np.int8)
+        spec = np.concatenate([ffv1.predict_plane(q, quant)[1]
+                               .astype(np.int8).ravel()
+                               for q in i420_planes(flat, w, h)])
+        if not (np.array_equal(got, want) and np.array_equal(got, spec)):
+            raise AssertionError(f"FFV1 fields of frame {i} differ on the "
+                                 f"card")
+    y = i420_planes(frames[0], w, h)[0]
+    ctx = card(y)[0]
+    if not np.array_equal(ctx, ffv1.predict_plane(y, quant)[0]):
+        raise AssertionError("FFV1 contexts differ on the card")
+    log(f"[ffv1] {CODEC_FRAMES} frames {w}x{h} I420: the fields on the card "
+        f"equal the CPU and predict_plane bit for bit; Y contexts too (max "
+        f"{int(ctx.max())})")
+    res = {"frames_checked": CODEC_FRAMES}
+    flat_dev = torch.from_numpy(frames[0]).to(dev)
+    n = flat_dev.numel()
+    b_ms, b_by = bound(2 * n, OPS_PER_SAMPLE["ffv1_field"] * n,
+                       I32_OPS_PER_S)
+
+    def fields():
+        return card.dispatch_diff_i420(flat_dev, w, h)
+
+    prof = profile_calls(fields, 5)
+    ms = time_ms(fields, flush)
+    res["dispatch_diff_i420"] = {**prof, "ms": ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "bytes": 2 * n}
+    log(f"[ffv1] dispatch_diff_i420 a 1080p frame: {ms:.4f} ms, "
+        f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms "
+        f"busy, bound {b_ms:.5f} ms ({b_by})  [{smi}]")
+
+    dev_frames = [torch.from_numpy(f).to(dev) for f in frames]
+    want, cpu_s, cpu_native = run_ffv1enc(gstpu_torch, "cpu", frames, w, h)
+    runs = {"cuda tensors": run_ffv1enc(gstpu_torch, dev, dev_frames, w, h),
+            "host frames": run_ffv1enc(gstpu_torch, dev, frames, w, h)}
+    for how, (got, dt, native) in runs.items():
+        log(f"[ffv1] ffv1enc on the card fed {how}: {len(got)} frames, "
+            f"{sum(map(len, got))} bytes, {'equal to' if got == want else 'DIFFERENT FROM'} "
+            f"the CPU's stream; {len(got) / dt:.2f} fps "
+            f"(native coder: {native})")
+        if got != want or len(got) != CODEC_FRAMES or not native:
+            raise AssertionError(f"ffv1enc fed {how} differs from the CPU "
+                                 f"or did not run the native coder")
+        res[f"element_fps_{how.replace(' ', '_')}"] = len(got) / dt
+    if not cpu_native:
+        raise AssertionError("ffv1enc on the CPU did not run the native "
+                             "coder")
+    res["bytes_per_frame"] = sum(map(len, want)) / len(want)
+    res["ratio"] = frames[0].size / res["bytes_per_frame"]
+    # lossless: a small frame through the spec model's decoder
+    sw, sh = 176, 144
+    small = codec_frames(rng, 1, sw, sh)[0]
+    pkt = run_ffv1enc(gstpu_torch, dev, [torch.from_numpy(small).to(dev)],
+                      sw, sh)[0]
+    back = ffv1.ModelDecoder(sw, sh).decode(pkt[0])
+    if not np.array_equal(np.concatenate([q.ravel() for q in back]), small):
+        raise AssertionError("the card's FFV1 stream does not decode to its "
+                             "source")
+    log(f"[ffv1] a {sw}x{sh} frame encoded on the card decodes through the "
+        f"spec model's decoder to its source; 1080p stream "
+        f"{res['bytes_per_frame']:.0f} B a frame ({res['ratio']:.3f}:1)")
+    gstpu_torch.init(device=dev)
+    return res
+
+
+def av1_phase(gstpu_torch, dev, smi, flush) -> dict:
+    """10c. The AV1 device legs at 1080p: make_intra_analyzer and
+    make_intra_transform on the card against the CPU (the mode map and
+    mode_counts bit for bit, the reconstruction's differing bytes
+    counted, the bits proxy within 1e-3), their times against the
+    bound; then `rav1enc device-transform=true ! dav1ddec` where the
+    codec shim builds, its decoded planes equal to the card's
+    reconstruction."""
+    from gstpu_torch import native_codec
+    from gstpu_torch.ops import av1_intra
+    from gstpu_torch.ops.av1_intra import (make_intra_analyzer,
+                                           make_intra_transform)
+    w, h = CODEC_W, CODEC_H
+    rng = np.random.default_rng(SEED + 13)
+    frames = [i420_planes(f, w, h)
+              for f in codec_frames(rng, CODEC_FRAMES, w, h)]
+    qstep = np.float32(0.125 * 2.0 ** (min(63, AV1_QUANTIZER // 4) / 6.0))
+    an_card, an_cpu = make_intra_analyzer(h, w, dev), \
+        make_intra_analyzer(h, w, "cpu")
+    xf_card, xf_cpu = make_intra_transform(h, w, dev), \
+        make_intra_transform(h, w, "cpu")
+    differ = worst = n_rec = 0
+    bits_rel = curve_rel = 0.0
+    counts = None
+    for i, (y, u, v) in enumerate(frames):
+        y_dev = torch.from_numpy(y).to(dev)
+        modes = [av1_intra._predict(t.to(torch.float32))[2].cpu()
+                 for t in (y_dev, torch.from_numpy(y))]
+        curve, counts = (t.cpu() for t in an_card(y_dev))
+        curve_c, counts_c = an_cpu(y)
+        got = [t.cpu() for t in xf_card(y, u, v, qstep)]
+        want = xf_cpu(y, u, v, qstep)
+        if not torch.equal(modes[0], modes[1]) \
+                or not torch.equal(counts, counts_c):
+            raise AssertionError(f"AV1 modes of frame {i} differ on the card")
+        for a, b in zip(got[:3], want[:3]):
+            d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+            differ += int((d != 0).sum())
+            worst = max(worst, int(d.max()))
+            n_rec += d.numel()
+        bits_rel = max(bits_rel, abs(float(got[3]) / float(want[3]) - 1))
+        curve_rel = max(curve_rel, float((curve - curve_c).abs().max()
+                                         / curve_c[0]))
+    log(f"[av1] {CODEC_FRAMES} frames {w}x{h}: mode maps and mode_counts "
+        f"equal the CPU (last {counts.tolist()}); reconstruction at qstep "
+        f"{float(qstep):.4f}: {differ} of {n_rec} bytes differ (max "
+        f"{worst}); transform bits within {bits_rel:.3e}, analyzer curve "
+        f"within {curve_rel:.3e} of its finest step (gate 1e-3)")
+    if differ > 0.03 * n_rec or worst > 2 or bits_rel > 1e-3 \
+            or curve_rel > 1e-3:
+        raise AssertionError("the AV1 transform on the card is too far from "
+                             "the CPU")
+    res = {"frames_checked": CODEC_FRAMES, "rec_bytes_differ": differ,
+           "rec_bytes": n_rec, "rec_max_abs_diff": worst,
+           "bits_max_rel_diff": bits_rel, "curve_max_rel_diff": curve_rel}
+    y, u, v = (torch.from_numpy(p).to(dev) for p in frames[0])
+    px = w * h
+    for name, fn, n_bytes, n_px in (
+            ("make_intra_analyzer", lambda: an_card(y), px + 16 * 4 + 12,
+             px),
+            ("make_intra_transform", lambda: xf_card(y, u, v, qstep),
+             3 * px, 3 * px // 2)):
+        prof = profile_calls(fn, 5)
+        ms = time_ms(fn, flush)
+        b_ms, b_by = bound(n_bytes, OPS_PER_SAMPLE[name] * n_px,
+                           F32_OPS_PER_S)
+        res[name] = {**prof, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": n_bytes}
+        log(f"[av1] {name} a 1080p frame: {ms:.4f} ms, "
+            f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms "
+            f"busy, bound {b_ms:.5f} ms ({b_by})  [{smi}]")
+
+    if native_codec.load() is None:
+        log("[av1] rav1enc ! dav1ddec not run: the codec shim "
+            "(native/gstpu_codec.cpp with libavcodec) does not build on "
+            "this machine")
+        res["element"] = "codec shim absent"
+        return res
+    gstpu_torch.init(device=dev)
+    p = gstpu_torch.parse_launch(
+        f'appsrc name=src caps="video/x-raw, format=I420, width={w}, '
+        f'height={h}, framerate=30/1" ! rav1enc device-transform=true '
+        f'quantizer={AV1_QUANTIZER} ! dav1ddec ! appsink name=sink')
+    src = p.get_by_name("src")
+    p.set_state(gstpu_torch.State.PLAYING)
+    t0 = time.perf_counter()
+    for i, planes in enumerate(frames[:AV1_ELEMENT_FRAMES]):
+        src.push_buffer(gstpu_torch.Buffer(
+            np.concatenate([q.ravel() for q in planes]),
+            pts=i * 33_333_333))
+        while p.iterate():
+            pass
+    src.end_of_stream()
+    p.run()
+    dt = time.perf_counter() - t0
+    out = p.get_by_name("sink").pull_all()
+    p.set_state(gstpu_torch.State.NULL)
+    if len(out) != AV1_ELEMENT_FRAMES:
+        raise AssertionError(f"rav1enc ! dav1ddec gave {len(out)} frames")
+    for i, (b, planes) in enumerate(zip(out, frames)):
+        rec = torch.cat([t.reshape(-1) for t in
+                         xf_card(*planes, qstep)[:3]]).cpu().numpy()
+        if not np.array_equal(np.frombuffer(b.to_bytes(), np.uint8), rec):
+            raise AssertionError(f"decoded frame {i} differs from the "
+                                 f"card's reconstruction")
+    res["element"] = {"frames": len(out), "fps": len(out) / dt}
+    log(f"[av1] rav1enc device-transform=true ! dav1ddec: {len(out)} 1080p "
+        f"frames decode to the card's reconstruction byte for byte; "
+        f"{len(out) / dt:.2f} fps")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -1910,7 +2316,13 @@ def main() -> int:
         rnnoise = rnnoise_phase(gstpu_torch, dev, smi, Path(tmp))
         t9 = time.monotonic()
         binaural = binaural_phase(gstpu_torch, dev, smi, Path(tmp))
-    element["phase_s"].update({"8": t9 - t8, "9": time.monotonic() - t9})
+    # 10. hsvdetector and the codec device legs
+    t10 = time.monotonic()
+    detector = detector_phase(gstpu_torch, dev, smi, bank, flush)
+    codec = {"ffv1": ffv1_phase(gstpu_torch, dev, smi, flush),
+             "av1": av1_phase(gstpu_torch, dev, smi, flush)}
+    element["phase_s"].update({"8": t9 - t8, "9": t10 - t9,
+                               "10": time.monotonic() - t10})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -1918,6 +2330,8 @@ def main() -> int:
     log(json.dumps({"element": element}))
     log(json.dumps({"rnnoise": rnnoise}))
     log(json.dumps({"binaural": binaural}))
+    log(json.dumps({"hsvdetector": detector}))
+    log(json.dumps({"codec": codec}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ _MODULES = [
     "gstpu_torch.elements.generic.testsrc",
     "gstpu_torch.elements.video.hsv",
     "gstpu_torch.elements.video.colorlut",
+    "gstpu_torch.elements.video.av1",
     "gstpu_torch.elements.audio.audiofx",
     "gstpu_torch.elements.audio.loudnorm",
     "gstpu_torch.elements.audio.rnnoise",

@@ -1,4 +1,4 @@
-"""hsvfilter's per-pixel HSV adjust on tensors.
+"""hsvfilter's per-pixel HSV adjust and hsvdetector's HSV key on tensors.
 
 `hsv_filter_frame` runs on a frame's tensor where it lies: on a CUDA
 tensor it launches the hand-written kernel `hsv_filter_u8`
@@ -14,6 +14,10 @@ XLA CPU compiler runs it, bit for bit over all 2^24 colours:
   done here by `fma_f32`;
 - `jnp.mod` is C fmod plus a sign fix, exact; `torch.remainder` is a
   different function, so `_floor_mod` uses `torch.fmod`.
+
+hsvdetector (`hsv_detect`, `hsv_detect_frame`) reaches no Pallas kernel in
+gstpu: its port is torch ops on the same RGB->HSV planes
+(`_rgb_planes_to_hsv`), which run on the device of the frame.
 """
 
 from __future__ import annotations
@@ -50,17 +54,11 @@ def _floor_mod(a: torch.Tensor, m: float) -> torch.Tensor:
     return torch.where(r < 0.0, r + m, r)
 
 
-def hsv_filter_frame_ref(frame: torch.Tensor, rgb_idx: tuple,
-                         hue_shift: float, sat_mul: float, sat_off: float,
-                         val_mul: float, val_off: float) -> torch.Tensor:
-    """Plain version: (..., C) uint8 frame in its native channel order;
-    the planes at rgb_idx go through the HSV adjust, the rest pass
-    through. Returns a new tensor."""
-    hue_shift, sat_mul, sat_off, val_mul, val_off = map(
-        _f32, (hue_shift, sat_mul, sat_off, val_mul, val_off))
-    ri, gi, bi = rgb_idx
-    r, g, b = (frame[..., i].to(torch.float32) * _INV_255
-               for i in (ri, gi, bi))
+def _rgb_planes_to_hsv(r_u8: torch.Tensor, g_u8: torch.Tensor,
+                       b_u8: torch.Tensor) -> tuple:
+    """The f32 (h, s, v) planes of three u8 colour planes
+    (gstpu/ops/hsv.py _rgb_planes_to_hsv, as XLA's CPU code runs it)."""
+    r, g, b = (c.to(torch.float32) * _INV_255 for c in (r_u8, g_u8, b_u8))
     value = torch.maximum(torch.maximum(r, g), b)
     chroma = value - torch.minimum(torch.minimum(r, g), b)
     safe = torch.where(chroma == 0.0, 1.0, chroma)
@@ -76,7 +74,21 @@ def hsv_filter_frame_ref(frame: torch.Tensor, rgb_idx: tuple,
     hue = _floor_mod(torch.where(hue < 0.0, hue + 360.0, hue), 360.0)
     sat = torch.where(value == 0.0, zero,
                       chroma / torch.where(value == 0.0, 1.0, value))
-    sat, value = sat.clamp(0.0, 1.0), value.clamp(0.0, 1.0)
+    return hue, sat.clamp(0.0, 1.0), value.clamp(0.0, 1.0)
+
+
+def hsv_filter_frame_ref(frame: torch.Tensor, rgb_idx: tuple,
+                         hue_shift: float, sat_mul: float, sat_off: float,
+                         val_mul: float, val_off: float) -> torch.Tensor:
+    """Plain version: (..., C) uint8 frame in its native channel order;
+    the planes at rgb_idx go through the HSV adjust, the rest pass
+    through. Returns a new tensor."""
+    hue_shift, sat_mul, sat_off, val_mul, val_off = map(
+        _f32, (hue_shift, sat_mul, sat_off, val_mul, val_off))
+    ri, gi, bi = rgb_idx
+    hue, sat, value = _rgb_planes_to_hsv(frame[..., ri], frame[..., gi],
+                                         frame[..., bi])
+    zero = torch.zeros_like(value)
 
     h = _floor_mod(hue + hue_shift, 360.0)
     h = torch.where(h < 0.0, h + 360.0, h)
@@ -135,3 +147,61 @@ def hsv_filter_frame(frame: torch.Tensor, rgb_idx: tuple, hue_shift: float,
         _f32(sat_off), _f32(val_mul), _f32(val_off),
         stream_handle(frame.device))
     return out
+
+
+def _uniform(u, ndim: int):
+    """A detector uniform as the f32 value gstpu casts it to: a float,
+    or a (B, 1) tensor of per-lane values shaped to broadcast against
+    (B, ...) planes of `ndim` dims."""
+    if isinstance(u, torch.Tensor):
+        return u.to(torch.float32).reshape(-1, *(1,) * (ndim - 1))
+    return _f32(u)
+
+
+def _hsv_match(h, s, v, hue_ref, hue_var, sat_ref, sat_var, val_ref,
+               val_var) -> torch.Tensor:
+    """The boolean HSV-window match on (h, s, v) planes
+    (gstpu/ops/hsv.py _hsv_match): `180 - hue_ref` is one f32 value, as
+    XLA computes it, before it is added to the plane."""
+    hue_ref, hue_var, sat_ref, sat_var, val_ref, val_var = (
+        _uniform(u, h.dim()) for u in
+        (hue_ref, hue_var, sat_ref, sat_var, val_ref, val_var))
+    if isinstance(hue_ref, torch.Tensor):
+        offset = 180.0 - hue_ref
+    else:
+        offset = _f32(np.float32(180.0) - np.float32(hue_ref))
+    shifted = h + offset
+    shifted = _floor_mod(torch.where(shifted < 0.0, shifted + 360.0,
+                                     shifted), 360.0)
+    return (((shifted - 180.0).abs() <= hue_var)
+            & ((s - sat_ref).abs() <= sat_var)
+            & ((v - val_ref).abs() <= val_var))
+
+
+def hsv_detect(rgb: torch.Tensor, hue_ref, hue_var, sat_ref, sat_var,
+               val_ref, val_var) -> torch.Tensor:
+    """hsvdetector's match mask of a (..., 3) uint8 RGB frame: 255 where
+    the pixel lies in the HSV key window (circular hue), else 0."""
+    match = _hsv_match(*_rgb_planes_to_hsv(rgb[..., 0], rgb[..., 1],
+                                           rgb[..., 2]),
+                       hue_ref, hue_var, sat_ref, sat_var, val_ref, val_var)
+    return match.to(torch.uint8) * 255
+
+
+def hsv_detect_frame(frame: torch.Tensor, rgb_idx: tuple, out_idx: tuple,
+                     hue_ref, hue_var, sat_ref, sat_var, val_ref,
+                     val_var) -> torch.Tensor:
+    """hsvdetector on a (..., C) uint8 frame in its native channel order:
+    the planes at rgb_idx feed the window match, and the (..., 4) output
+    holds them at out_idx = (r, g, b, alpha) with the mask as alpha.
+    Torch ops on the frame's device. Each uniform is a float, or a
+    (B, 1) tensor of per-lane values for a (B, H, W, C) batch."""
+    ri, gi, bi = rgb_idx
+    rgb = (frame[..., ri], frame[..., gi], frame[..., bi])
+    match = _hsv_match(*_rgb_planes_to_hsv(*rgb), hue_ref, hue_var,
+                       sat_ref, sat_var, val_ref, val_var)
+    chans: list = [None] * 4
+    ro, go, bo, ao = out_idx
+    chans[ro], chans[go], chans[bo] = rgb
+    chans[ao] = match.to(torch.uint8) * 255
+    return torch.stack(chans, -1)

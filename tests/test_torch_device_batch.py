@@ -308,6 +308,43 @@ def test_video_streams_lane_parameters_differ():
         _assert_frames_equal(batched[s:s + 1], single, 2)
 
 
+def test_hsvdetector_batches_streams():
+    """N `hsvdetector context=` streams run as one batched step, equal to
+    the unbatched element and to gstpu's batched pipelines; lanes whose
+    key windows differ, each with its own."""
+    W, H, N = 32, 16, 4
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (N, 2, H, W, 4), dtype=np.uint8)
+
+    def launch(ctx, extra="hue_ref=120 hue_var=60 "):
+        ctx = f"context={ctx} " if ctx else ""
+        return (f'appsrc name=src caps="video/x-raw, format=RGBA, '
+                f'width={W}, height={H}, framerate=30/1" ! '
+                f'hsvdetector name=d {extra}saturation_ref=0.5 '
+                f'saturation_var=0.5 value_ref=0.5 value_var=0.5 {ctx}! '
+                f'appsink name=sink')
+
+    DeviceContext.release("vdet")
+    batched = _video_run(gstpu_torch, launch("vdet"), frames)
+    single = _video_run(gstpu_torch, launch(None), frames)
+    JaxDeviceContext.release("vdet")
+    jax_batched = _video_run(gstpu, launch("vdet"), frames)
+    _assert_frames_equal(batched, single, 2)
+    _assert_frames_equal(batched, jax_batched, 2)
+    assert 0 < (batched[0][0][..., 3] == 255).sum() < W * H
+
+    refs = iter([0.0, 0.0, 240.0, 350.0])
+    DeviceContext.release("vdet2")
+    batched = _video_run(
+        gstpu_torch, launch("vdet2", "hue_var=40 "), frames,
+        setup=lambda p: p.get_by_name("d").set_property("hue_ref",
+                                                        next(refs)))
+    for s, ref in enumerate([0.0, 0.0, 240.0, 350.0]):
+        single = _video_run(gstpu_torch, launch(
+            None, f"hue_ref={ref} hue_var=40 "), frames[s:s + 1])
+        _assert_frames_equal(batched[s:s + 1], single, 2)
+
+
 def test_video_chain_batches_both_stages():
     """hsvfilter AND colorlut each batch N streams (two contexts, one
     per kernel): the chain's output equals the per-stream path and

@@ -8,6 +8,12 @@ chip_smoke.py. The kernel takes jnp.mod by compare and subtract where
 its argument is known to lie within 4 moduli, and hp mod 2 by a floor;
 each form, written in torch here, must equal the plain version's fmod
 form bit for bit over its argument's range.
+
+hsvdetector's ops (`hsv_detect`, `hsv_detect_frame`) are torch ops on
+the same planes and must equal JAX's bit for bit over every colour, for
+key windows at both ends of the hue circle and the widest one, in every
+alpha-capable output layout; the element runs the same launch strings
+as gstpu's with equal frames.
 """
 
 import jax.numpy as jnp
@@ -15,10 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+import gstpu
+import gstpu_torch
+from gstpu.ops.hsv import hsv_detect as jax_hsv_detect
+from gstpu.ops.hsv import hsv_detect_frame as jax_hsv_detect_frame
 from gstpu.ops.hsv import hsv_filter_frame as jax_hsv_filter_frame
 from gstpu_torch.elements.video.hsv import _LAYOUTS
 from gstpu_torch.ops import fma_f32
-from gstpu_torch.ops.hsv import (HSV_KERNEL, _floor_mod, hsv_filter_frame,
+from gstpu_torch.ops.hsv import (HSV_KERNEL, _floor_mod, hsv_detect,
+                                 hsv_detect_frame, hsv_filter_frame,
                                  hsv_filter_frame_ref)
 
 PARAMS = [(12.0, 1.1, 0.0, 0.9, 0.02),
@@ -155,3 +166,112 @@ def test_plain_matches_jax_at_the_mod_edges(hue_shift):
     want = _jax(frame, (0, 1, 2), params)
     got = hsv_filter_frame_ref(torch.from_numpy(frame), (0, 1, 2), *params)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (hue_ref, hue_var, sat_ref, sat_var, val_ref, val_var): the element's
+# defaults, windows that wrap around 0 and 360, the widest hue window,
+# and two inside the circle
+DETECT_PARAMS = [(0.0, 10.0, 0.0, 0.15, 0.0, 0.3),
+                 (359.9, 20.0, 0.5, 0.5, 0.5, 0.5),
+                 (0.1, 180.0, 1.0, 0.3, 1.0, 0.3),
+                 (120.0, 60.0, 0.0, 0.15, 0.0, 0.3),
+                 (200.5, 33.3, 0.7, 0.2, 0.4, 0.35)]
+# (input layout, output layout) pairs covering every output layout
+DETECT_LAYOUTS = [("RGBA", "RGBA"), ("BGRx", "BGRA"), ("ARGB", "ARGB"),
+                  ("xBGR", "ABGR"), ("BGRA", "ARGB")]
+
+
+def _cube() -> np.ndarray:
+    p = np.arange(1 << 24, dtype=np.uint32)
+    return np.stack([p & 255, (p >> 8) & 255, p >> 16, (p * 7 + 3) & 255],
+                    -1).astype(np.uint8).reshape(4096, 4096, 4)
+
+
+def _out_idx(fmt: str) -> tuple:
+    (r, g, b), a = _LAYOUTS[fmt]
+    return r, g, b, a
+
+
+@pytest.mark.parametrize("params,layouts",
+                         list(zip(DETECT_PARAMS, DETECT_LAYOUTS)))
+def test_detect_matches_jax_on_every_colour(params, layouts):
+    """All 2^24 colours through hsv_detect, and through hsv_detect_frame
+    from one input layout into one output layout, bitwise."""
+    cube = _cube()
+    in_fmt, out_fmt = layouts
+    rgb_idx, _ = _LAYOUTS[in_fmt]
+    frame = cube[..., _perm(rgb_idx)]
+    uni = [jnp.float32(p) for p in params]
+    want = np.asarray(jax_hsv_detect(jnp.asarray(cube[..., :3]), *uni))
+    got = hsv_detect(torch.from_numpy(cube[..., :3]), *params).numpy()
+    np.testing.assert_array_equal(got, want)
+    want = np.asarray(jax_hsv_detect_frame(
+        jnp.asarray(frame), rgb_idx, _out_idx(out_fmt), *uni))
+    got = hsv_detect_frame(torch.from_numpy(frame), rgb_idx,
+                           _out_idx(out_fmt), *params).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < (got[..., _out_idx(out_fmt)[3]] == 255).sum() < 1 << 24
+
+
+def _perm(rgb_idx) -> list:
+    """Channel c of a layout frame holds cube channel k where rgb_idx[k]
+    is c; the other channel holds the cube's fourth."""
+    return [rgb_idx.index(c) if c in rgb_idx else 3 for c in range(4)]
+
+
+def test_detect_lane_uniforms_match_per_frame():
+    """A (B, H, W, C) batch whose uniforms differ across lanes ((B, 1)
+    f64 tensors, as a DeviceContext passes them) equals each frame run
+    alone with its own floats."""
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.integers(0, 256, (3, 24, 40, 4),
+                                           dtype=np.uint8))
+    lanes = [(0.0, 30.0, 0.5, 0.5, 0.5, 0.5), (350.0, 30.0, 0.5, 0.5, 0.5,
+                                                0.5),
+             (120.0, 90.0, 0.2, 0.4, 0.6, 0.3)]
+    unis = [torch.tensor(col, dtype=torch.float64)[:, None]
+            for col in zip(*lanes)]
+    got = hsv_detect_frame(frames, (2, 1, 0), (0, 1, 2, 3), *unis)
+    for i, params in enumerate(lanes):
+        want = hsv_detect_frame(frames[i], (2, 1, 0), (0, 1, 2, 3), *params)
+        assert torch.equal(got[i], want)
+
+
+@pytest.mark.parametrize("in_fmt", ["RGB", "BGRx", "ARGB"])
+def test_hsvdetector_launch_matches_gstpu(in_fmt):
+    """The same launch string in both packages, on equal frames."""
+    rng = np.random.default_rng(11)
+    W, H = 24, 12
+    frames = rng.integers(0, 256, (3, H, W, len(in_fmt)), dtype=np.uint8)
+    (r, g, b), _ = _LAYOUTS[in_fmt]
+    frames[0, :4, :, [r, g, b]] = np.array([255, 0, 0], np.uint8)[:, None,
+                                                                   None]
+    launch = (f'appsrc name=src caps="video/x-raw, format={in_fmt}, '
+              f'width={W}, height={H}, framerate=30/1" ! hsvdetector '
+              f'hue_ref=355 hue_var=25 saturation_ref=0.8 '
+              f'saturation_var=0.4 value_ref=0.7 value_var=0.5 ! '
+              f'appsink name=sink')
+    outs = {}
+    for pkg in (gstpu, gstpu_torch):
+        if pkg is gstpu_torch:
+            pkg.init(device="cpu")
+        else:
+            pkg.init()
+        p = pkg.parse_launch(launch)
+        src, sink = p.get_by_name("src"), p.get_by_name("sink")
+        p.set_state(pkg.State.PLAYING)
+        for f in frames:
+            src.push_buffer(pkg.Buffer(f.reshape(-1).copy()))
+        src.end_of_stream()
+        p.run()
+        bufs = sink.pull_all()
+        outs[pkg] = (str(sink.caps), [np.asarray(b.array).reshape(-1)
+                                      for b in bufs])
+        p.set_state(pkg.State.NULL)
+    (caps_j, frames_j), (caps_t, frames_t) = outs[gstpu], outs[gstpu_torch]
+    assert caps_t == caps_j and len(frames_t) == len(frames_j) == 3
+    for a, b in zip(frames_t, frames_j):
+        np.testing.assert_array_equal(a, b)
+    out_fmt = caps_t.split("format=")[1].split(",")[0].strip(" ()string")
+    alpha = frames_t[0].reshape(H, W, 4)[..., _LAYOUTS[out_fmt][1]]
+    assert (alpha[:4] == 255).all()              # the red rows match

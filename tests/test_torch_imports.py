@@ -90,6 +90,10 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.ops.fftconv\n"
             "import gstpu_torch.elements.audio.rnnoise\n"
             "import gstpu_torch.elements.audio.hrtf\n"
+            "import gstpu_torch.codecs.ffv1, gstpu_torch.native\n"
+            "import gstpu_torch.native_ffv1, gstpu_torch.native_codec\n"
+            "import gstpu_torch.ops.ffv1_pred, gstpu_torch.ops.av1_intra\n"
+            "import gstpu_torch.elements.video.av1\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
@@ -115,13 +119,15 @@ def test_port_has_its_own_registry():
     from gstpu_torch.core.registry import element_factory, list_factories
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    for name in ("hsvfilter", "colorlut", "appsrc", "videotestsrc",
-                 "rsaudioecho", "audiornnoise", "hrtfrender", "sofalizer"):
+    names = ("hsvfilter", "hsvdetector", "colorlut", "appsrc",
+             "videotestsrc", "rsaudioecho", "audiornnoise", "hrtfrender",
+             "sofalizer", "ffv1enc", "ffv1dec", "rav1enc", "dav1ddec")
+    for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
         assert port.__module__.startswith("gstpu_torch.")
         assert ref.__module__.startswith("gstpu.")
-    assert "hsvdetector" not in list_factories()
+    assert set(names) <= set(list_factories())
 
 
 def test_rsaudioecho_with_context_raises():
