@@ -100,11 +100,32 @@ of every kernel library in DIR and needs no card.)
    maps and counts bit for bit, the reconstruction's differing bytes
    counted, the bits within 1e-3) and their times, then `rav1enc
    device-transform=true ! dav1ddec` on 4 frames where the codec shim
-   builds (one line says so where it does not).
+   builds (one line says so where it does not);
+11. runs the analytics path and the rest of the video device path: (a)
+   `videotestsrc ! 1280x720 RGB ! videoscale ! 640x640 ! yoloxinference
+   model-size=s num-classes=80 ! yoloxtensordec ! appsink` through
+   parse_launch on the card (YOLOX-S at its published depth and width,
+   seeded parameters): each of 4 frames' forward within 1e-3 of the
+   output's peak of the port's CPU forward on the same frame (f32, TF32
+   off), the detections' count and classes equal at the element's
+   threshold and at one set in the widest gap of the scores; the
+   forward's time (CUDA events), kernels and busy time a frame beside its
+   FLOP bound, the decode's host time, the string's fps, and the forward
+   with TF32 allowed (not on the element's path); (b) videoscale, 4K
+   RGBA to 1080p linear, and 1080p I420 to 720p and 720p RGBA64BE to
+   640x360 in both methods, on the card against the CPU (nearest bit for
+   bit, linear within 1 LSB with the differing bytes counted) and their
+   times against the bytes bound; (c) the compositor's 2x2 multiview of
+   1280x720 RGB inputs at 960x540 with a 640x360 I420 picture-in-picture
+   on a 1920x1080 canvas: `_blend` and the GRAY8 and I420 conversions to
+   RGB bit for bit against the CPU, the resized layers' and the canvas's
+   differing bytes counted, the canvas fed CUDA tensors equal to the one
+   fed host frames, fps fed each, and `_blend`'s time for one quadrant
+   against its bytes bound.
 
 It prints one JSON line each of the audio chain, of the element form, of
-audiornnoise, of the binaural render, of hsvdetector and of the codec
-legs, the card's name and power
+audiornnoise, of the binaural render, of hsvdetector, of the codec
+legs and of the analytics path, the card's name and power
 limit, one JSON line of kernels and last `{"ok": true, "device":
 {...}}`. Any failed phase raises, and the
 script then exits non-zero without that last line; so does a machine
@@ -208,6 +229,20 @@ I32_OPS_PER_S = F32_OPS_PER_S / 2
 # 64, quantise, rebuild and round 10)
 OPS_PER_SAMPLE = {"ffv1_field": 30, "hsv_detect_frame": 45,
                   "make_intra_analyzer": 137, "make_intra_transform": 74}
+# the analytics path (phase 11a): YOLOX-S (depth 0.33, width 0.50, 80
+# classes) at 640x640 from a 1280x720 RGB source, seeded parameters
+YOLOX_SIZE, YOLOX_CLASSES, YOLOX_IN = "s", 80, 640
+YOLOX_SRC_W, YOLOX_SRC_H = 1280, 720
+YOLOX_CHECKED, YOLOX_FPS_FRAMES = 4, 30
+# the card against the CPU: the forward within this share of the
+# output's peak (f32 on both, cuDNN's TF32 off)
+YOLOX_TOL = 1e-3
+# the compositor (phase 11c): a 2x2 multiview of 1280x720 RGB inputs at
+# 960x540 on a 1920x1080 canvas, alphas per quadrant, and a 640x360 I420
+# picture-in-picture at 0.5 over the centre
+COMP_W, COMP_H = 1920, 1080
+COMP_ALPHAS = (1.0, 0.75, 0.5, 1.0)
+COMP_ROUNDS = 30
 
 
 def log(*args) -> None:
@@ -1975,6 +2010,392 @@ def av1_phase(gstpu_torch, dev, smi, flush) -> dict:
     return res
 
 
+def conv_flops(model, x) -> int:
+    """The operations of every convolution of one forward on x: the sum
+    of 2 * H_out * W_out * k^2 * C_in / groups * C_out."""
+    total = [0]
+
+    def hook(m, inp, out):
+        k = m.kernel_size[0] * m.kernel_size[1]
+        total[0] += 2 * out.shape[-2] * out.shape[-1] * k \
+            * (m.in_channels // m.groups) * m.out_channels * out.shape[0]
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def detections_key(dets) -> tuple:
+    return len(dets), sorted(d.class_id for d in dets)
+
+
+def analytics_phase(gstpu_torch, dev, smi, flush) -> dict:
+    """11a. The analytics string `videotestsrc ! videoscale !
+    yoloxinference ! yoloxtensordec ! appsink`, YOLOX-S at 640x640 with
+    seeded parameters, through parse_launch on the card: each checked
+    frame's forward within YOLOX_TOL of the output's peak of the port's
+    CPU forward on the same frame, and the detections' count and classes
+    equal at the element's threshold and at a threshold set in the widest
+    gap of the scores; the forward's time, kernels, busy time and FLOP
+    bound, the decode's host time, the string's fps, and the forward with
+    TF32 allowed (not on the element's path)."""
+    from gstpu_torch.elements.analytics.analytics import (
+        AnalyticsRelationMeta, TensorMeta)
+    from gstpu_torch.ops.detection import _sigmoid, yolox_decode
+    from gstpu_torch.ops.yolox import build_model, forward, init_params
+    launch = (f"videotestsrc num-buffers={YOLOX_CHECKED} pattern=gradient ! "
+              f"video/x-raw,format=RGB,width={YOLOX_SRC_W},height="
+              f"{YOLOX_SRC_H} ! videoscale ! video/x-raw,width={YOLOX_IN},"
+              f"height={YOLOX_IN} ! yoloxinference name=inf model-size="
+              f"{YOLOX_SIZE} num-classes={YOLOX_CLASSES} ! yoloxtensordec "
+              f"num-classes={YOLOX_CLASSES} ! appsink name=out")
+    out = run_pipeline(gstpu_torch, launch, dev)
+    if len(out) != YOLOX_CHECKED:
+        raise AssertionError(f"the analytics string gave {len(out)} frames")
+    cpu_model = build_model(init_params(YOLOX_CLASSES, size=YOLOX_SIZE),
+                            "cpu")
+    n_anchors = sum((YOLOX_IN // s) ** 2 for s in (8, 16, 32))
+    worst = peak = 0.0
+    gap_checks = []
+    for i, b in enumerate(out):
+        frame = b.data
+        pred = b.get_meta(TensorMeta).data
+        if frame.device.type != "cuda" \
+                or tuple(frame.shape) != (YOLOX_IN, YOLOX_IN, 3) \
+                or pred.shape != (n_anchors, 5 + YOLOX_CLASSES) \
+                or not np.isfinite(pred).all():
+            raise AssertionError(f"analytics frame {i}: frame "
+                                 f"{tuple(frame.shape)} on "
+                                 f"{frame.device}, prediction {pred.shape}")
+        x = frame.cpu().to(torch.float32) / torch.tensor(255.0)
+        want = forward(cpu_model, x).numpy()
+        worst = max(worst, float(np.abs(pred - want).max()))
+        peak = max(peak, float(np.abs(want).max()))
+        dets = b.get_meta(AnalyticsRelationMeta).detections
+        if detections_key(dets) != detections_key(
+                yolox_decode(want, YOLOX_IN, YOLOX_IN)):
+            raise AssertionError(f"analytics frame {i}: detections differ "
+                                 f"from the CPU's at the element's threshold")
+        # a threshold in the widest gap of the CPU's top 2% of scores
+        # that leaves at least 10 anchors above it, so NMS has work
+        sc = np.sort((_sigmoid(want[:, 4])[:, None]
+                      * _sigmoid(want[:, 5:])).max(1))[-n_anchors // 50:]
+        k = int(np.argmax(np.diff(sc[:-9])))
+        thr = float(sc[k] + sc[k + 1]) / 2
+        got = yolox_decode(pred, YOLOX_IN, YOLOX_IN, score_threshold=thr)
+        ref = yolox_decode(want, YOLOX_IN, YOLOX_IN, score_threshold=thr)
+        gap_checks.append({"threshold": thr, "gap": float(sc[k + 1] - sc[k]),
+                           "detections": len(ref)})
+        if detections_key(got) != detections_key(ref) or not ref:
+            raise AssertionError(f"analytics frame {i}: detections differ "
+                                 f"from the CPU's at threshold {thr}")
+    log(f"[analytics] YOLOX-{YOLOX_SIZE} {YOLOX_IN}x{YOLOX_IN} through "
+        f"parse_launch on the card, {YOLOX_CHECKED} frames: forward max "
+        f"|card - CPU| {worst:.3e} on outputs of peak {peak:.4e} (gate "
+        f"{YOLOX_TOL:g} of the peak); detections equal at the element's "
+        f"threshold 0.3 ({len(out[0].get_meta(AnalyticsRelationMeta).detections)}"
+        f" on frame 0) and in the scores' widest gap {gap_checks}")
+    if not worst <= YOLOX_TOL * peak:
+        raise AssertionError("the YOLOX forward on the card is too far from "
+                             "the CPU")
+    res = {"frames_checked": YOLOX_CHECKED, "forward_max_abs_diff": worst,
+           "forward_peak": peak, "tolerance_of_peak": YOLOX_TOL,
+           "gap_checks": gap_checks}
+
+    model = build_model(init_params(YOLOX_CLASSES, size=YOLOX_SIZE), dev)
+    x = out[0].data.to(torch.float32) / torch.tensor(255.0, device=dev)
+    flops = conv_flops(model, x.permute(2, 0, 1)[None].contiguous())
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    n_bytes = 4 * (n_params + x.numel() + n_anchors * (5 + YOLOX_CLASSES))
+    b_ms, b_by = bound(n_bytes, flops, F32_OPS_PER_S)
+    prof = profile_calls(lambda: forward(model, x), 5)
+    ms = time_ms(lambda: forward(model, x), flush)
+
+    def forward_tf32():
+        with torch.inference_mode(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=False,
+                allow_tf32=True):
+            return model(x.permute(2, 0, 1)[None].contiguous())[0]
+    tf32_ms = time_ms(forward_tf32, flush)
+    tf32_diff = float((forward_tf32() - forward(model, x)).abs().max())
+    pred = out[0].get_meta(TensorMeta).data
+    decode = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        yolox_decode(pred, YOLOX_IN, YOLOX_IN)
+        decode.append(time.perf_counter() - t0)
+    decode_ms = statistics.median(decode) * 1e3
+    res["forward"] = {**prof, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "flops": flops, "bytes": n_bytes, "params": n_params}
+    res["forward_tf32_ms"] = tf32_ms
+    res["forward_tf32_max_abs_diff"] = tf32_diff
+    res["decode_host_ms"] = decode_ms
+    log(f"[analytics] yolox forward a frame: {ms:.4f} ms (CUDA events), "
+        f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms busy, "
+        f"bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP of "
+        f"convolutions, {n_params} parameters); yolox_decode on the host "
+        f"{decode_ms:.3f} ms; not on the element's path: the forward with "
+        f"TF32 allowed {tf32_ms:.4f} ms, max |diff| {tf32_diff:.3e}  [{smi}]")
+
+    fps_launch = launch.replace(f"num-buffers={YOLOX_CHECKED}",
+                                f"num-buffers={YOLOX_FPS_FRAMES}")
+    t0 = time.perf_counter()
+    n = len(run_pipeline(gstpu_torch, fps_launch, dev))
+    dt = time.perf_counter() - t0
+    if n != YOLOX_FPS_FRAMES:
+        raise AssertionError(f"the analytics string gave {n} frames")
+    res["fps"] = n / dt
+    log(f"[analytics] the string, {n} frames: {n / dt:.2f} fps  [{smi}]")
+    return res
+
+
+def scale_phase(gstpu_torch, dev, smi, flush) -> dict:
+    """11b. videoscale on the card against the CPU: a 4K RGBA frame to
+    1920x1080 linear (an antialiased downscale) through `_resize`, a
+    1080p I420 frame to 1280x720 and a 720p RGBA64BE frame (read in its
+    byte order) to 640x360, nearest and linear, through the element;
+    nearest bit for bit, linear within 1 LSB with the differing bytes
+    counted; each one's time a frame against its bytes bound."""
+    from gstpu_torch.elements.video.scale import _resize
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    big = smooth_frame(dev, gen)
+    got = _resize(big, 1080, 1920, "linear").cpu()
+    want = _resize(big.cpu(), 1080, 1920, "linear")
+    res = {}
+
+    def count(name, got, want, exact):
+        d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        res[name] = {"bytes_differ": int((d != 0).sum()),
+                     "bytes": d.numel(), "max_abs_diff": int(d.max())}
+        log(f"[videoscale] {name}: {res[name]['bytes_differ']} of "
+            f"{d.numel()} bytes differ from the CPU (max {int(d.max())})")
+        if int(d.max()) > (0 if exact else 1):
+            raise AssertionError(f"videoscale {name} on the card differs "
+                                 f"from the CPU")
+
+    count("4K RGBA -> 1920x1080 linear", got, want, False)
+    rng = np.random.default_rng(SEED + 21)
+    frame = codec_frames(rng, 1, CODEC_W, CODEC_H)[0]
+    # 16-bit values around the u8 range, so byte order and clipping show
+    deep = rng.integers(0, 320, (720, 1280, 4)).astype(">u2")
+    for fmt, (w, h), (ow, oh), payload in (
+            ("I420", (CODEC_W, CODEC_H), (1280, 720), frame),
+            ("RGBA64BE", (1280, 720), (640, 360),
+             deep.view(np.uint8).reshape(-1))):
+        for method in ("nearest", "bilinear"):
+            outs = []
+            for where in (dev, "cpu"):
+                gstpu_torch.init(device=where)
+                p = gstpu_torch.parse_launch(
+                    f'appsrc name=src caps="video/x-raw, format={fmt}, '
+                    f'width={w}, height={h}, framerate=30/1" ! videoscale '
+                    f'method={method} ! video/x-raw,width={ow},height={oh} '
+                    f'! appsink name=sink')
+                p.set_state(gstpu_torch.State.PLAYING)
+                p.get_by_name("src").push_buffer(
+                    gstpu_torch.Buffer(payload, pts=0))
+                p.get_by_name("src").end_of_stream()
+                p.run()
+                outs.append(p.get_by_name("sink").pull_all()[0].data)
+                p.set_state(gstpu_torch.State.NULL)
+            n_out = ow * oh * 3 // 2 if fmt == "I420" else ow * oh * 8
+            if outs[0].device.type != "cuda" or outs[0].numel() != n_out:
+                raise AssertionError(f"videoscale {method} {fmt} gave "
+                                     f"{outs[0].shape} on {outs[0].device}")
+            if fmt == "RGBA64BE":
+                # the values, not the bytes: the zero high bytes of the
+                # widened u8 would dilute the count
+                outs = [o.cpu().reshape(-1, 2)[:, 1] for o in outs]
+            count(f"{h}p {fmt} -> {ow}x{oh} {method}", outs[0].cpu(),
+                  outs[1], method == "nearest")
+    gstpu_torch.init(device=dev)
+    planes = [torch.from_numpy(q).to(dev)
+              for q in i420_planes(frame, CODEC_W, CODEC_H)]
+
+    def i420(m):
+        return [_resize(q[..., None], h, w, m) for q, (h, w) in
+                zip(planes, ((720, 1280), (360, 640), (360, 640)))]
+
+    for name, fn, n_bytes in (
+            ("4K RGBA linear", lambda: _resize(big, 1080, 1920, "linear"),
+             big.numel() + 1920 * 1080 * 4),
+            ("1080p I420 nearest", lambda: i420("nearest"),
+             frame.size + 1280 * 720 * 3 // 2),
+            ("1080p I420 linear", lambda: i420("linear"),
+             frame.size + 1280 * 720 * 3 // 2)):
+        prof = profile_calls(fn, 5)
+        ms = time_ms(fn, flush)
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {**prof, "ms": ms, "bound_ms": b_ms, "bound_by": "bytes",
+                     "bytes": n_bytes}
+        log(f"[videoscale] {name} a frame: {ms:.4f} ms, "
+            f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms "
+            f"busy, bytes bound {b_ms:.5f} ms  [{smi}]")
+    return res
+
+
+def run_compositor(gstpu_torch, where, layers, rounds: int):
+    """compositor on `where`: the 2x2 multiview and the PiP from `layers`
+    ((format, width, height, payload) each), `rounds` output frames from
+    the same layers; the frames and the seconds."""
+    from gstpu_torch.core.caps import parse_caps
+    gstpu_torch.init(device=where)
+    comp = gstpu_torch.make("compositor", width=COMP_W, height=COMP_H)
+    out = []
+    cap = gstpu_torch.Pad("cap", gstpu_torch.PadDirection.SINK,
+                          gstpu_torch.PadTemplate(
+                              "sink", gstpu_torch.PadDirection.SINK,
+                              gstpu_torch.PadPresence.ALWAYS,
+                              gstpu_torch.Caps.any()))
+    cap.chain_function = lambda p, b: (out.append(b)
+                                       or gstpu_torch.FlowReturn.OK)
+    cap.event_function = lambda p, e: True
+    comp.static_pad("src").link(cap)
+    comp.set_state(gstpu_torch.State.PLAYING)
+    feeders = []
+    places = [(0, 0), (960, 0), (0, 540), (960, 540)]
+    for i, (fmt, w, h, _) in enumerate(layers):
+        pad = comp.request_pad()
+        if i < 4:
+            pad.xpos, pad.ypos = places[i]
+            pad.width, pad.height, pad.alpha = 960, 540, COMP_ALPHAS[i]
+        else:
+            pad.xpos, pad.ypos, pad.alpha = (COMP_W - w) // 2, \
+                (COMP_H - h) // 2, 0.5
+        f = gstpu_torch.Pad(f"f{i}", gstpu_torch.PadDirection.SRC,
+                            gstpu_torch.PadTemplate(
+                                "src", gstpu_torch.PadDirection.SRC,
+                                gstpu_torch.PadPresence.ALWAYS,
+                                gstpu_torch.Caps.any()))
+        f.link(pad)
+        f.push_event(gstpu_torch.StreamStartEvent(f"s{i}"))
+        f.push_event(gstpu_torch.CapsEvent(parse_caps(
+            f"video/x-raw, format={fmt}, width={w}, height={h}, "
+            f"framerate=30/1")))
+        f.push_event(gstpu_torch.SegmentEvent(gstpu_torch.Segment()))
+        feeders.append(f)
+    t0 = time.perf_counter()
+    for k in range(rounds):
+        for f, (_, _, _, layer) in zip(feeders, layers):
+            f.push(gstpu_torch.Buffer(layer, pts=k * 33_333_333))
+    if where != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for f in feeders:
+        f.push_event(gstpu_torch.EosEvent())
+    comp.set_state(gstpu_torch.State.NULL)
+    return out, dt
+
+
+def compositor_phase(gstpu_torch, dev, smi, flush) -> dict:
+    """11c. The compositor's 2x2 multiview with a picture-in-picture on a
+    1920x1080 canvas, fed host frames and CUDA tensors, on the card
+    against the CPU: `_blend` bit for bit, the resized layers' and the
+    canvases' differing bytes counted; frames a second; `_blend`'s time
+    for one quadrant against its bytes bound."""
+    from gstpu_torch.elements.video.compositor import _blend
+    from gstpu_torch.elements.video.scale import _resize
+    rng = np.random.default_rng(SEED + 22)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    from gstpu_torch.core.video import VideoInfo
+    from gstpu_torch.elements.video.convert import to_rgb_tensor
+    layers = [("RGB", 1280, 720, np.ascontiguousarray(
+        smooth_frame(dev, gen)[:720, :1280, :3].cpu().numpy()))
+        for _ in range(4)]
+    layers.append(("I420", 640, 360, codec_frames(rng, 1, 640, 360)[0]))
+    on_card = [(f, w, h, torch.from_numpy(x).to(dev))
+               for f, w, h, x in layers]
+    want, _ = run_compositor(gstpu_torch, "cpu", layers, 1)
+    got, _ = run_compositor(gstpu_torch, dev, layers, 1)
+    got_t, _ = run_compositor(gstpu_torch, dev, on_card, 1)
+    res = {}
+    d = (got[0].data.cpu().to(torch.int32)
+         - want[0].data.to(torch.int32)).abs()
+    tensors_equal = torch.equal(got_t[0].data, got[0].data)
+    # the layers' conversions to RGB, card against CPU, at 1080p
+    convert_equal = True
+    for fmt, x in (("I420", codec_frames(rng, 1, COMP_W, COMP_H)[0]),
+                   ("GRAY8", rng.integers(0, 256, COMP_W * COMP_H,
+                                          dtype=np.uint8))):
+        info = VideoInfo(fmt, COMP_W, COMP_H)
+        a = to_rgb_tensor(info, gstpu_torch.Buffer(torch.from_numpy(x)
+                                                   .to(dev)), dev)
+        b = to_rgb_tensor(info, gstpu_torch.Buffer(x), torch.device("cpu"))
+        convert_equal = convert_equal and a.device.type == "cuda" \
+            and torch.equal(a.cpu(), b)
+    resized = 0
+    for _, _, _, layer in layers[:4]:
+        t = torch.from_numpy(layer)
+        e = (_resize(t.to(dev), 540, 960, "linear").cpu().to(torch.int32)
+             - _resize(t, 540, 960, "linear").to(torch.int32)).abs()
+        resized += int((e != 0).sum())
+        if int(e.max()) > 1:
+            raise AssertionError("a resized layer differs by more than 1 "
+                                 "on the card")
+    # _blend alone, on the same canvas and layer on both sides
+    canvas = torch.from_numpy(rng.integers(0, 256, (COMP_H, COMP_W, 3),
+                                           dtype=np.uint8))
+    layer = torch.from_numpy(rng.integers(0, 256, (540, 960, 4),
+                                          dtype=np.uint8))
+    blend_equal = all(torch.equal(
+        _blend(canvas.to(dev), layer.to(dev), y0, x0, a).cpu(),
+        _blend(canvas.clone(), layer, y0, x0, a))
+        for (x0, y0), a in zip(((0, 0), (960, 0), (0, 540), (960, 540),
+                                (640, 360)), COMP_ALPHAS + (0.5,)))
+    # and a layer over the whole canvas (the FMA on the canvas's product)
+    full = torch.from_numpy(rng.integers(0, 256, (COMP_H, COMP_W, 4),
+                                         dtype=np.uint8))
+    blend_equal = blend_equal and torch.equal(
+        _blend(canvas.to(dev), full.to(dev), 0, 0, 0.6).cpu(),
+        _blend(canvas.clone(), full, 0, 0, 0.6))
+    res.update({"canvas_bytes_differ": int((d != 0).sum()),
+                "canvas_max_abs_diff": int(d.max()),
+                "resized_bytes_differ": resized,
+                "resized_bytes": 4 * 540 * 960 * 3,
+                "blend_bit_for_bit": blend_equal,
+                "to_rgb_bit_for_bit": convert_equal,
+                "tensors_equal_host_frames": tensors_equal})
+    log(f"[compositor] 2x2 multiview + I420 PiP at {COMP_W}x{COMP_H}: _blend "
+        f"on the card {'equals' if blend_equal else 'DIFFERS FROM'} the CPU "
+        f"bit for bit, I420/GRAY8 to RGB "
+        f"{'equal' if convert_equal else 'DIFFER'}; the four resized layers "
+        f"differ in {resized} of {4 * 540 * 960 * 3} bytes, the canvas in "
+        f"{res['canvas_bytes_differ']} of {d.numel()} (max {int(d.max())}); "
+        f"fed CUDA tensors the canvas "
+        f"{'equals' if tensors_equal else 'DIFFERS FROM'} the one fed host "
+        f"frames")
+    if not (blend_equal and convert_equal and tensors_equal) \
+            or int(d.max()) > 1 or got_t[0].data.device.type != "cuda":
+        raise AssertionError("the compositor on the card differs from the "
+                             "CPU")
+    canvas, layer = canvas.to(dev), layer.to(dev)
+
+    def quadrant():
+        return _blend(canvas, layer, 540, 960, COMP_ALPHAS[1])
+    prof = profile_calls(quadrant, 5)
+    ms = time_ms(quadrant, flush)
+    # the region read and written, the layer read
+    n_bytes = 540 * 960 * (3 + 4 + 3)
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    res["_blend"] = {**prof, "ms": ms, "bound_ms": b_ms, "bound_by": "bytes",
+                     "bytes": n_bytes}
+    log(f"[compositor] _blend of a 960x540 RGBA layer: {ms:.4f} ms, "
+        f"{prof['kernels_per_call']} kernels, {prof['busy_ms']:.4f} ms busy, "
+        f"bytes bound {b_ms:.5f} ms  [{smi}]")
+    for how, ls in (("host frames", layers), ("cuda tensors", on_card)):
+        run_compositor(gstpu_torch, dev, ls, 2)
+        frames, dt = run_compositor(gstpu_torch, dev, ls, COMP_ROUNDS)
+        if len(frames) < COMP_ROUNDS:
+            raise AssertionError(f"the compositor gave {len(frames)} frames")
+        res[f"fps_{how.replace(' ', '_')}"] = COMP_ROUNDS / dt
+        log(f"[compositor] fed {how}: {COMP_ROUNDS} frames in "
+            f"{dt * 1e3:.3f} ms: {COMP_ROUNDS / dt:.2f} fps  [{smi}]")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -2321,8 +2742,14 @@ def main() -> int:
     detector = detector_phase(gstpu_torch, dev, smi, bank, flush)
     codec = {"ffv1": ffv1_phase(gstpu_torch, dev, smi, flush),
              "av1": av1_phase(gstpu_torch, dev, smi, flush)}
-    element["phase_s"].update({"8": t9 - t8, "9": t10 - t9,
-                               "10": time.monotonic() - t10})
+    # 11. the analytics path, videoscale and the compositor
+    t11 = time.monotonic()
+    analytics = {"yolox": analytics_phase(gstpu_torch, dev, smi, flush),
+                 "videoscale": scale_phase(gstpu_torch, dev, smi, flush),
+                 "compositor": compositor_phase(gstpu_torch, dev, smi,
+                                                flush)}
+    element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
+                               "11": time.monotonic() - t11})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -2332,6 +2759,7 @@ def main() -> int:
     log(json.dumps({"binaural": binaural}))
     log(json.dumps({"hsvdetector": detector}))
     log(json.dumps({"codec": codec}))
+    log(json.dumps({"analytics": analytics}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

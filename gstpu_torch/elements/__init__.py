@@ -16,6 +16,10 @@ _MODULES = [
     "gstpu_torch.elements.video.hsv",
     "gstpu_torch.elements.video.colorlut",
     "gstpu_torch.elements.video.av1",
+    "gstpu_torch.elements.video.scale",
+    "gstpu_torch.elements.video.convert",
+    "gstpu_torch.elements.video.compositor",
+    "gstpu_torch.elements.analytics.analytics",
     "gstpu_torch.elements.audio.audiofx",
     "gstpu_torch.elements.audio.loudnorm",
     "gstpu_torch.elements.audio.rnnoise",

@@ -94,6 +94,11 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.native_ffv1, gstpu_torch.native_codec\n"
             "import gstpu_torch.ops.ffv1_pred, gstpu_torch.ops.av1_intra\n"
             "import gstpu_torch.elements.video.av1\n"
+            "import gstpu_torch.elements.video.scale\n"
+            "import gstpu_torch.elements.video.convert\n"
+            "import gstpu_torch.elements.video.compositor\n"
+            "import gstpu_torch.elements.analytics.analytics\n"
+            "import gstpu_torch.ops.yolox, gstpu_torch.ops.detection\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
@@ -121,13 +126,21 @@ def test_port_has_its_own_registry():
     gstpu_torch.init(device="cpu")
     names = ("hsvfilter", "hsvdetector", "colorlut", "appsrc",
              "videotestsrc", "rsaudioecho", "audiornnoise", "hrtfrender",
-             "sofalizer", "ffv1enc", "ffv1dec", "rav1enc", "dav1ddec")
+             "sofalizer", "ffv1enc", "ffv1dec", "rav1enc", "dav1ddec",
+             "videoscale", "videoconvert", "compositor", "skiacompositor",
+             "yoloxinference", "yoloxtensordec", "burn-yoloxinference",
+             "analyticscombiner", "analyticssplitter",
+             "handdetectiontensordec")
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
         assert port.__module__.startswith("gstpu_torch.")
         assert ref.__module__.startswith("gstpu.")
     assert set(names) <= set(list_factories())
+    # gstpu's ONVIF converters need its ONVIF elements, not in the port
+    onvif = {"onvifmeta2relationmeta", "relationmeta2onvifmeta"}
+    assert onvif <= set(gstpu.core.registry.list_factories())
+    assert not onvif & set(list_factories())
 
 
 def test_rsaudioecho_with_context_raises():
