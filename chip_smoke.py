@@ -121,15 +121,31 @@ of every kernel library in DIR and needs no card.)
    RGB bit for bit against the CPU, the resized layers' and the canvas's
    differing bytes counted, the canvas fed CUDA tensors equal to the one
    fed host frames, fps fed each, and `_blend`'s time for one quadrant
-   against its bytes bound.
+   against its bytes bound;
+12. runs the port of gstpu's parallel layer at the flagship's width (192
+   lanes of 192 kHz f64, 100 ms blocks, 20 of them): (a) on a one-rank
+   NCCL group (FileStore, device_id) and make_mesh(1, 1), the
+   stream-sharded echo equal to echo_block on the card and the CPU, the
+   seq-sharded FIR echo equal to echo_block without feedback, the
+   seq-sharded K-weighting within 1e-8 of kweight_unsharded, and
+   make_audiofx_exact_chain's checkpoint restored onto the mesh mid-stream
+   equal to the uninterrupted run in every lane; event ms and kernels a
+   block of each; the group torn down; (b) make_audiofx_chain on the card
+   against the CPU within the CPU tests' bounds, a mid-stream checkpoint
+   resumed bit for bit, its event ms, busy ms and kernels a step against
+   its bytes bound; (c) the 4K `videotestsrc ! hsvfilter ! queue !
+   colorlut ! appsink` string twice, each pipeline driven by a streaming
+   thread of its own, under the torch-profiler tracer: the Chrome trace
+   holds pad_push spans from both threads and every launch of both CUDA
+   kernels inside one, with their device time.
 
 It prints one JSON line each of the audio chain, of the element form, of
-audiornnoise, of the binaural render, of hsvdetector, of the codec
-legs and of the analytics path, the card's name and power
-limit, one JSON line of kernels and last `{"ok": true, "device":
-{...}}`. Any failed phase raises, and the
-script then exits non-zero without that last line; so does a machine
-without CUDA or a directory without the gstpu_torch package.
+audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
+of the analytics path and of the parallel layer, the card's name and
+power limit, one JSON line of kernels and last `{"ok": true, "device":
+{...}}`. Any failed phase raises, and the script then exits non-zero
+without that last line; so does a machine without CUDA or a directory
+without the gstpu_torch package.
 """
 
 from __future__ import annotations
@@ -243,6 +259,28 @@ YOLOX_TOL = 1e-3
 COMP_W, COMP_H = 1920, 1080
 COMP_ALPHAS = (1.0, 0.75, 0.5, 1.0)
 COMP_ROUNDS = 30
+# the mesh (phase 12a): the flagship's width as 192 mono lanes (96 stereo
+# streams) of 192 kHz f64, 100 ms blocks, the 0.25 s echo (in lane
+# samples), 20 blocks, on a one-rank NCCL group; the seq-sharded FIR
+# echo needs a delay of at most its segment
+RATE_192K = 192_000
+MESH_LANES = 2 * AUDIO_STREAMS
+MESH_BLOCK, MESH_DELAY, MESH_FIR_DELAY = 19_200, 48_000, 9_600
+MESH_BLOCKS = 20
+MESH_RESUME = 2              # exact chain: steps before and after a restore
+# the seq-sharded K-weighting against the unsharded one: gstpu's bound
+# (tests/test_seq_sharding.py); f64 operations a sample and stage of the
+# block biquad: the in-block FIR's 63 multiply-adds, b0 x, the state
+# increments (2 products, 2 sums) and the observation (2 and 2)
+KWEIGHT_TOL = 1e-8
+KWEIGHT_OPS = 2 * 63 + 1 + 4 + 4
+# make_audiofx_chain (phase 12b): the gain's target, and the card against
+# the CPU within the CPU tests' bounds against gstpu
+# (tests/test_torch_parallel_chain.py)
+LIGHT_TARGET = 0.1
+LIGHT_OUT_TOL, LIGHT_LOUD_TOL_DB, LIGHT_GAIN_RTOL = 2.4e-7, 1e-5, 1e-6
+# the traced string (phase 12c): frames a pipeline
+TRACE_FRAMES = 8
 
 
 def log(*args) -> None:
@@ -2396,6 +2434,383 @@ def compositor_phase(gstpu_torch, dev, smi, flush) -> dict:
     return res
 
 
+def event_ms(fn, *args):
+    """fn(*args) on the card: its CUDA-event ms and its result."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    result = fn(*args)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1), result
+
+
+def step_stats(name: str, ms: list, prof: dict, smi: str, n_bytes: float,
+               ops: float, ops_per_s: float, tag: str = "mesh") -> dict:
+    """A step's event ms a block (median), its profiler window and its
+    bound: n_bytes over the memory rate or ops over ops_per_s."""
+    b_ms, by = bound(n_bytes, ops, ops_per_s)
+    res = {"ms": statistics.median(ms), **prof, "bound_ms": b_ms,
+           "bound_by": by, "bytes": n_bytes, "ops": ops}
+    log(f"[{tag}] {name}: {res['ms']:.4f} ms a block (events, median of "
+        f"{len(ms)}), {prof['kernels_per_call']} kernels and "
+        f"{prof['busy_ms']:.4f} ms busy a block; bound {b_ms:.5f} ms "
+        f"({by})  [{smi}]")
+    return res
+
+
+def mesh_blocks(dev) -> list:
+    """Phase 12's input: MESH_BLOCKS blocks of (MESH_LANES, MESH_BLOCK)
+    f64 samples in [-0.3, 0.3), made on the card from SEED."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = (torch.rand((MESH_LANES, MESH_BLOCKS * MESH_BLOCK), generator=gen,
+                    device=dev, dtype=torch.float64) - 0.5) * 0.6
+    return list(x.split(MESH_BLOCK, dim=1))
+
+
+def mesh_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
+    """12a. gstpu_torch.parallel.streams on a one-rank NCCL group at the
+    flagship's width, against the unsharded ops, and a checkpoint of the
+    exact chain restored onto the mesh mid-stream."""
+    import torch.distributed as dist
+
+    from gstpu_torch.ops.echo import echo_block, make_state
+    from gstpu_torch.parallel import streams
+    from gstpu_torch.parallel.chains import make_audiofx_exact_chain
+    from gstpu_torch.parallel.checkpoint import checkpoint, restore
+    gstpu_torch.init(device="cuda")
+    # the rank's card, as a launcher would select it before the mesh
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp / "nccl-store"), 1), rank=0,
+        world_size=1, device_id=dev)
+    try:
+        mesh = streams.make_mesh(1, 1)
+        res = {"mesh": str(mesh), "backend": dist.get_backend(),
+               "lanes": MESH_LANES, "block": MESH_BLOCK,
+               "blocks": MESH_BLOCKS}
+        log(f"[mesh] {mesh} on {dist.get_backend()}: {MESH_LANES} lanes x "
+            f"{MESH_BLOCKS} blocks of {MESH_BLOCK} f64 samples")
+        blocks = mesh_blocks(dev)
+        args = (AUDIO_INTENSITY, AUDIO_FEEDBACK)
+        block_bytes = MESH_LANES * MESH_BLOCK * 8
+        samples = MESH_LANES * MESH_BLOCK
+
+        # the stream-sharded echo against echo_block, on the card and on
+        # the CPU
+        step, dims = streams.make_stream_sharded_echo(mesh, MESH_DELAY)
+        rows = streams.shard_slice(MESH_LANES, mesh, dims)
+        tail = make_state((rows.stop - rows.start,), MESH_DELAY, device=dev)
+        tail_u = make_state((MESH_LANES,), MESH_DELAY, device=dev)
+        tail_c = make_state((MESH_LANES,), MESH_DELAY, device="cpu")
+        ms = []
+        for blk in blocks:
+            t, (tail, out) = event_ms(
+                step, tail, streams.shard_rows(blk, mesh, dims), *args)
+            ms.append(t)
+            tail_u, want = echo_block(tail_u, blk, *args, delay=MESH_DELAY)
+            tail_c, want_c = echo_block(tail_c, blk.cpu(), *args,
+                                        delay=MESH_DELAY)
+            if not torch.equal(out, want[rows]) \
+                    or not torch.equal(out.cpu(), want_c[rows]):
+                raise AssertionError("the stream-sharded echo differs from "
+                                     "echo_block")
+        # the block read and the output written, the delayed samples
+        # read and the new ones written (the block is shorter than the
+        # delay; audio_bounds' echo_block); two multiplies and two adds a
+        # sample
+        res["stream_echo"] = step_stats(
+            "stream-sharded echo (equals echo_block on the card and the "
+            "CPU, every block)", ms, profile_calls(
+                lambda: step(tail, blocks[0][rows], *args), 5), smi,
+            4 * block_bytes, 4 * samples, F64_OPS_PER_S)
+
+        # the seq-sharded FIR echo against echo_block without feedback;
+        # its output feeds the K-weighting
+        fir = streams.make_seq_sharded_fir_echo(mesh, MESH_FIR_DELAY,
+                                                MESH_BLOCK)
+        rows = streams.shard_slice(MESH_LANES, mesh, ("stream",))
+        f64 = dict(dtype=torch.float64, device=dev)
+        tail = torch.zeros((rows.stop - rows.start, MESH_FIR_DELAY), **f64)
+        tail_u = make_state((MESH_LANES,), MESH_FIR_DELAY, device=dev)
+        ms, mids = [], []
+        for blk in blocks:
+            local = streams.shard_rows(streams.shard_rows(
+                blk, mesh, ("stream",)), mesh, ("seq",), dim=1)
+            t, (tail, mid) = event_ms(fir, tail, local, AUDIO_INTENSITY)
+            ms.append(t)
+            tail_u, want = echo_block(tail_u, blk, AUDIO_INTENSITY, 0.0,
+                                      delay=MESH_FIR_DELAY)
+            if not torch.equal(mid, want[rows]):
+                raise AssertionError("the seq-sharded FIR echo differs from "
+                                     "echo_block with feedback 0")
+            mids.append(mid)
+        # the block read, the output written, the carry read and written;
+        # a multiply and an add a sample
+        res["seq_fir_echo"] = step_stats(
+            f"seq-sharded FIR echo, delay {MESH_FIR_DELAY} (equals "
+            f"echo_block with feedback 0, every block)", ms, profile_calls(
+                lambda: fir(tail, mids[0], AUDIO_INTENSITY), 5), smi,
+            2 * block_bytes + 2 * MESH_LANES * MESH_FIR_DELAY * 8,
+            2 * samples, F64_OPS_PER_S)
+
+        # the seq-sharded K-weighting against kweight_unsharded, carried
+        # over the blocks
+        kw = streams.make_seq_sharded_kweight(mesh, RATE_192K, MESH_BLOCK)
+        gold = streams.kweight_unsharded(RATE_192K)
+        z = torch.zeros((rows.stop - rows.start, 2, 2), **f64)
+        z_u = torch.zeros((MESH_LANES, 2, 2), **f64)
+        ms, ms_u, err, peak = [], [], 0.0, 0.0
+        for mid in mids:
+            t, (z, y) = event_ms(kw, z, mid)
+            ms.append(t)
+            t, (z_u, y_u) = event_ms(gold, z_u, mid)
+            ms_u.append(t)
+            err = max(err, float((y - y_u[rows]).abs().max()))
+            peak = max(peak, float(y_u.abs().max()))
+        z_err = float((z - z_u[rows]).abs().max())
+        log(f"[mesh] seq-sharded K-weighting against kweight_unsharded over "
+            f"{MESH_BLOCKS} blocks: max |diff| {err:.4e} on outputs of peak "
+            f"{peak:.4f}, the carried state {z_err:.4e} (bound "
+            f"{KWEIGHT_TOL})")
+        if not err < KWEIGHT_TOL or not z_err < KWEIGHT_TOL:
+            raise AssertionError("the seq-sharded K-weighting is past its "
+                                 "bound")
+        # the block read and the output written; KWEIGHT_OPS a sample in
+        # each of the two stages, the sharded form 4 more for the
+        # incoming state's correction
+        kw_bytes = 2 * block_bytes
+        res["kweight"] = {
+            "max_abs_diff": err, "state_max_abs_diff": z_err, "peak": peak,
+            "sharded": step_stats(
+                "seq-sharded K-weighting", ms,
+                profile_calls(lambda: kw(z, mids[0]), 3), smi, kw_bytes,
+                2 * (KWEIGHT_OPS + 4) * samples, F64_OPS_PER_S),
+            "unsharded": step_stats(
+                "kweight_unsharded", ms_u,
+                profile_calls(lambda: gold(z_u, mids[0]), 3), smi, kw_bytes,
+                2 * KWEIGHT_OPS * samples, F64_OPS_PER_S)}
+        del blocks, mids
+
+        # the exact chain's checkpoint restored onto the mesh mid-stream
+        x0, bank = audio_banks(dev)
+        prime, cstep, init, _, _ = make_audiofx_exact_chain(
+            channels=AUDIO_CHANNELS, echo_delay=AUDIO_DELAY,
+            max_delay=AUDIO_DELAY)
+        st, _ = prime(init(AUDIO_STREAMS, device=dev), x0, *args)
+        for k in range(MESH_RESUME):
+            st, _, _ = cstep(st, bank[k], *args)
+        ck = tmp / "exact.npz"
+        t0 = time.perf_counter()
+        checkpoint(str(ck), st, step=MESH_RESUME)
+        ck_s = time.perf_counter() - t0
+        want = []
+        for k in range(MESH_RESUME, 2 * MESH_RESUME):
+            st, out, meters = cstep(st, bank[k], *args)
+            want.append((out, meters))
+        rows = streams.shard_slice(AUDIO_STREAMS, mesh, ("stream",))
+        t0 = time.perf_counter()
+        rst, n = restore(str(ck), init(rows.stop - rows.start, device=dev),
+                         mesh=mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ms = []
+        for k, (w_out, w_m) in zip(range(MESH_RESUME, 2 * MESH_RESUME),
+                                   want):
+            t, (rst, out, meters) = event_ms(
+                cstep, rst, streams.shard_rows(bank[k], mesh, ("stream",)),
+                *args)
+            ms.append(t)
+            if n != MESH_RESUME or not torch.equal(out, w_out[rows]) or \
+                    not all(torch.equal(meters[m], w_m[m][rows])
+                            for m in w_m):
+                raise AssertionError("the exact chain restored onto the mesh "
+                                     "differs from the uninterrupted run")
+        # the bytes of the step's main-path functions (audio_bounds)
+        step_bytes = sum(
+            v * (4 if k == "make_block_biquad" else 1) for k, (v, _) in
+            audio_bounds(AUDIO_STREAMS, AUDIO_CHANNELS).items())
+        res["exact_chain_resume"] = {
+            "streams": AUDIO_STREAMS, "checkpoint_bytes": ck.stat().st_size,
+            "checkpoint_s": ck_s, "restore_s": restore_s, **step_stats(
+                "exact chain step after the restore", ms, profile_calls(
+                    lambda: cstep(rst, bank[0], *args), 2), smi,
+                step_bytes, 0, F64_OPS_PER_S)}
+        log(f"[mesh] exact chain, {AUDIO_STREAMS} streams: checkpoint after "
+            f"{MESH_RESUME} steps ({ck.stat().st_size} B, {ck_s:.3f} s), "
+            f"restored onto the mesh ({restore_s:.3f} s): {MESH_RESUME} "
+            f"steps on equal the uninterrupted run bit for bit, every lane")
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def light_chain_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
+    """12b. make_audiofx_chain at phase 12a's width on the card against
+    the CPU, a mid-stream checkpoint and resume, its time and bound."""
+    from gstpu_torch.ops.fftconv import next_pow2
+    from gstpu_torch.parallel.chains import make_audiofx_chain
+    from gstpu_torch.parallel.checkpoint import checkpoint, restore
+    gstpu_torch.init(device="cuda")
+    B, N = MESH_LANES, MESH_BLOCK
+    step, init_state = make_audiofx_chain(RATE_192K, MESH_DELAY, MESH_DELAY,
+                                          block=N)
+    args = (AUDIO_INTENSITY, AUDIO_FEEDBACK, LIGHT_TARGET)
+    blocks = mesh_blocks(dev)
+    st = init_state(B)
+    st_c = tuple(a.cpu() for a in st)
+    half = MESH_BLOCKS // 2
+    ck = tmp / "light.npz"
+    ms, outs, err = [], [], {"out": 0.0, "loudness_db": 0.0, "gain": 0.0}
+    for k, blk in enumerate(blocks):
+        if k == half:
+            checkpoint(str(ck), st, step=k)
+        t, (st, out, loud) = event_ms(step, st, blk, *args)
+        ms.append(t)
+        outs.append(out)
+        st_c, out_c, loud_c = step(st_c, blk.cpu(), *args)
+        err["out"] = max(err["out"], float((out.cpu() - out_c).abs().max()))
+        err["loudness_db"] = max(err["loudness_db"],
+                                 float((loud.cpu() - loud_c).abs().max()))
+        err["gain"] = max(err["gain"], float(
+            ((st[2].cpu() - st_c[2]) / st_c[2]).abs().max()))
+        if not torch.equal(st[0].cpu(), st_c[0]) \
+                or not torch.equal(st[1].cpu(), st_c[1]):
+            raise AssertionError("make_audiofx_chain's echo tail or FIR "
+                                 "history differs between the card and "
+                                 "the CPU")
+    if not bool(torch.isfinite(torch.cat(outs)).all()):
+        raise AssertionError("make_audiofx_chain's output is not finite")
+    log(f"[chain] make_audiofx_chain, {B} lanes x {MESH_BLOCKS} blocks: the "
+        f"card against the CPU: output {err['out']:.4e} (bound "
+        f"{LIGHT_OUT_TOL}), loudness {err['loudness_db']:.4e} dB (bound "
+        f"{LIGHT_LOUD_TOL_DB}), gain {err['gain']:.4e} relative (bound "
+        f"{LIGHT_GAIN_RTOL}); echo tail and FIR history bit for bit")
+    if not (err["out"] <= LIGHT_OUT_TOL
+            and err["loudness_db"] <= LIGHT_LOUD_TOL_DB
+            and err["gain"] <= LIGHT_GAIN_RTOL):
+        raise AssertionError("make_audiofx_chain on the card is past its "
+                             "bounds against the CPU")
+    rst, n = restore(str(ck), init_state(B))
+    for k in range(n, MESH_BLOCKS):
+        rst, out, _ = step(rst, blocks[k], *args)
+        if not torch.equal(out, outs[k]):
+            raise AssertionError("make_audiofx_chain resumed from its "
+                                 "checkpoint differs from the "
+                                 "uninterrupted run")
+    log(f"[chain] checkpoint at block {half}, restored: blocks {half}-"
+        f"{MESH_BLOCKS - 1} equal the uninterrupted run bit for bit")
+    # the echo's bytes as in 12a (block in and out, delayed samples read,
+    # new ones written: f64), the FIR history and the gain read and
+    # written, the loudness written (f32); the f32 work: the forward and
+    # inverse real FFTs (5 n log2 n each) and the spectral product a
+    # lane, and about 16 operations a sample around them (echo, square,
+    # sum, gain, tanh)
+    L1 = 510
+    nfft = next_pow2(N + L1)
+    n_bytes = 4 * B * N * 8 + 2 * B * L1 * 4 + 2 * B * 4 + B * 4
+    ops = B * (2 * 5 * nfft * int(np.log2(nfft)) + 6 * (nfft // 2 + 1)
+               + 16 * N)
+    res = {"max_abs_err": err, **step_stats(
+        "make_audiofx_chain step", ms,
+        profile_calls(lambda: step(st, blocks[0], *args), 5), smi, n_bytes,
+        ops, F32_OPS_PER_S, "chain")}
+    res["realtime_lanes"] = B * 0.1 / (res["ms"] / 1e3)
+    log(f"[chain] make_audiofx_chain by events: {res['realtime_lanes']:.2f}"
+        f"x realtime over the {B} lanes  [{smi}]")
+    return res
+
+
+def trace_phase(gstpu_torch, dev, smi, tmp: Path, kernels) -> dict:
+    """12c. The 4K `hsvfilter ! queue ! colorlut` string under the
+    torch-profiler tracer, two pipelines each driven by a streaming
+    thread of its own: the Chrome trace holds pad_push spans from both
+    threads, and every launch of both kernels inside one."""
+    from gstpu_torch.utils.tracing import TorchProfilerTracer
+    gstpu_torch.init(device="cuda")
+    cube = tmp / "trace.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    launch = (f"videotestsrc num-buffers={TRACE_FRAMES} ! video/x-raw, "
+              f"format=RGBA, width={W}, height={H}, framerate=30/1 ! "
+              f"hsvfilter hue_shift=12 saturation_mul=1.1 value_mul=0.9 "
+              f"value_off=0.02 ! queue ! colorlut location={cube} ! "
+              f"appsink name=out")
+    plain = run_pipeline(gstpu_torch, launch.replace(
+        f"num-buffers={TRACE_FRAMES}", "num-buffers=1"), "cpu")[0].data
+    gstpu_torch.init(device="cuda")
+    for k in kernels:
+        k.launches = 0
+    tracer = TorchProfilerTracer(logdir=str(tmp / "trace"))
+    tracer.install()
+    try:
+        pipes = [gstpu_torch.parse_launch(launch) for _ in range(2)]
+        for p in pipes:
+            p.set_state(gstpu_torch.State.PLAYING)
+        t0 = time.monotonic()
+        threads = [p.run_async() for p in pipes]
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("a traced pipeline did not end")
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+    finally:
+        tracer.flush()
+        tracer.uninstall()
+    launches = {k.name: k.launches for k in kernels}
+    for p in pipes:
+        frames = p.get_by_name("out").pull_all()
+        p.set_state(gstpu_torch.State.NULL)
+        if len(frames) != TRACE_FRAMES or any(
+                f.data.device.type != "cuda"
+                or not torch.equal(f.data.cpu(), plain) for f in frames):
+            raise AssertionError("a traced pipeline's frames differ from "
+                                 "the plain chain")
+    with open(tracer.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("pad_push:")]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime"
+               and "correlation" in e.get("args", {})}
+    span_tids = sorted({str(e["tid"]) for e in spans})
+
+    def inside(k) -> bool:
+        rt = runtime.get(k["args"].get("correlation"))
+        return rt is not None and any(
+            s["tid"] == rt["tid"] and s["ts"] <= rt["ts"]
+            and rt["ts"] + rt["dur"] <= s["ts"] + s["dur"] for s in spans)
+
+    res = {"trace_bytes": os.path.getsize(tracer.trace_path),
+           "span_threads": len(span_tids), "spans": len(spans),
+           "frames_per_s": 2 * TRACE_FRAMES / dt, "kernels": {}}
+    for k in kernels:
+        fn = MAIN_FUNCTION[k.name].split("<")[0]
+        evs = [e for e in events if e.get("cat") == "kernel"
+               and fn in e.get("name", "")]
+        n_in = sum(map(inside, evs))
+        res["kernels"][k.name] = {
+            "launches": launches[k.name], "in_trace": len(evs),
+            "inside_pad_push": n_in,
+            "device_ms": sum(e["dur"] for e in evs) / 1e3}
+        log(f"[trace] {k.name}: {launches[k.name]} launches, {len(evs)} "
+            f"`{fn}` kernels in the trace, {n_in} launched inside a "
+            f"pad_push span, {res['kernels'][k.name]['device_ms']:.4f} ms "
+            f"of device time summed  [{smi}]")
+        if not (launches[k.name] == len(evs) == n_in == 2 * TRACE_FRAMES) \
+                or not all(e["dur"] > 0 for e in evs):
+            raise AssertionError(f"the trace does not hold every {k.name} "
+                                 f"launch inside a pad_push span")
+    log(f"[trace] {len(spans)} pad_push spans from {len(span_tids)} "
+        f"threads, {res['trace_bytes']} B of Chrome trace; 2 x "
+        f"{TRACE_FRAMES} 4K frames at {res['frames_per_s']:.2f} fps traced")
+    if len(span_tids) < 2:
+        raise AssertionError("the trace lacks a streaming thread's "
+                             "pad_push spans")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -2748,8 +3163,20 @@ def main() -> int:
                  "videoscale": scale_phase(gstpu_torch, dev, smi, flush),
                  "compositor": compositor_phase(gstpu_torch, dev, smi,
                                                 flush)}
+    # 12. the mesh on the card, make_audiofx_chain, the profiler tracer
+    t12 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = {"mesh": mesh_phase(gstpu_torch, dev, smi, Path(tmp)),
+                    "chain": light_chain_phase(gstpu_torch, dev, smi,
+                                               Path(tmp)),
+                    "trace": trace_phase(gstpu_torch, dev, smi, Path(tmp),
+                                         kernels)}
+    for row in rows:
+        row["launches_traced"] = \
+            parallel["trace"]["kernels"][row["name"]]["launches"]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
-                               "11": time.monotonic() - t11})
+                               "11": t12 - t11,
+                               "12": time.monotonic() - t12})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -2760,6 +3187,7 @@ def main() -> int:
     log(json.dumps({"hsvdetector": detector}))
     log(json.dumps({"codec": codec}))
     log(json.dumps({"analytics": analytics}))
+    log(json.dumps({"parallel": parallel}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """analyticscombiner / analyticssplitter / yoloxtensordec /
-yoloxinference / handdetectiontensordec.
+yoloxinference / handdetectiontensordec / onvifmeta2relationmeta /
+relationmeta2onvifmeta.
 
 Rebuilds the reference analytics/analytics crate: N streams batched
 into meta-carried mini-batches and back (the batching primitive at
@@ -8,10 +9,9 @@ AnalyticsRelationMeta object detections.
 
 The port of gstpu/elements/analytics/analytics.py. yoloxinference runs
 the torch YOLOX (gstpu_torch/ops/yolox.py) on the frame's device; the
-decoders, the combiner/splitter and the metas are gstpu's host code,
-copied. gstpu's ONVIF converters (onvifmeta2relationmeta,
-relationmeta2onvifmeta) need its ONVIF element module, which the port
-does not have, and are not here.
+decoders, the combiner/splitter, the ONVIF converters and the metas are
+gstpu's host code, copied; the converters take the ONVIF schema and meta
+from the port's copy of them (gstpu_torch/elements/net/onvif.py).
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from gstpu_torch.core.event import (CapsEvent, EosEvent, Segment,
 from gstpu_torch.core.props import Mutability, Property
 from gstpu_torch.core.registry import Rank, register_element
 from gstpu_torch.core.video import VideoInfo, video_caps
+from gstpu_torch.elements.net.onvif import (ONVIF_SCHEMA,
+                                            OnvifMetadataFrameMeta)
 from gstpu_torch.elements.video.scale import frame_tensor
 from gstpu_torch.ops.detection import Detection, yolox_decode
 
@@ -356,3 +358,84 @@ class HandDetectionTensorDec(BaseTransform):
 @register_element("burn-yoloxinference", Rank.NONE)
 class BurnYoloxInference(YoloxInference):
     """The reference's factory name for yoloxinference."""
+
+
+# -- ONVIF XML <-> AnalyticsRelationMeta ----------------------------------
+
+@register_element("onvifmeta2relationmeta", Rank.NONE)
+class OnvifMeta2RelationMeta(BaseTransform):
+    """Parses attached ONVIF documents' BoundingBoxes into
+    AnalyticsRelationMeta detections (normalized [-1,1] coords mapped
+    like onvifmeta2relationmeta/imp.rs:502)."""
+
+    IN_PLACE = True
+    PAD_TEMPLATES = [
+        PadTemplate("sink", PadDirection.SINK, PadPresence.ALWAYS,
+                    video_caps()),
+        PadTemplate("src", PadDirection.SRC, PadPresence.ALWAYS,
+                    video_caps()),
+    ]
+
+    def transform_ip(self, buf: Buffer) -> None:
+        import xml.etree.ElementTree as ET
+        info = VideoInfo.from_caps(self.in_caps)
+        W, H = info.width, info.height
+        dets = []
+        for m in buf.metas:
+            if not isinstance(m, OnvifMetadataFrameMeta):
+                continue
+            root = ET.fromstring(m.data)
+            for obj in root.iter(f"{{{ONVIF_SCHEMA}}}Object"):
+                bbox = obj.find(f".//{{{ONVIF_SCHEMA}}}BoundingBox")
+                if bbox is None:
+                    continue
+                left = float(bbox.get("left", 0))
+                right = float(bbox.get("right", 0))
+                top = float(bbox.get("top", 0))
+                bottom = float(bbox.get("bottom", 0))
+                x1 = (1.0 + left) * W / 2
+                x2 = (1.0 + right) * W / 2
+                y1 = (1.0 - top) * H / 2
+                y2 = (1.0 - bottom) * H / 2
+                dets.append(Detection(
+                    x=min(x1, x2), y=min(y1, y2),
+                    w=abs(x2 - x1), h=abs(y2 - y1), score=1.0,
+                    class_id=int(obj.get("ObjectId", 0)), label=""))
+        if dets:
+            buf.add_meta(AnalyticsRelationMeta(dets))
+
+
+@register_element("relationmeta2onvifmeta", Rank.NONE)
+class RelationMeta2OnvifMeta(BaseTransform):
+    """Inverse: AnalyticsRelationMeta detections become an attached
+    ONVIF VideoAnalytics document (reference relationmeta2onvifmeta).
+    """
+
+    IN_PLACE = True
+    PAD_TEMPLATES = OnvifMeta2RelationMeta.PAD_TEMPLATES
+
+    def transform_ip(self, buf: Buffer) -> None:
+        import xml.etree.ElementTree as ET
+        rm = buf.get_meta(AnalyticsRelationMeta)
+        if rm is None or not rm.detections:
+            return
+        info = VideoInfo.from_caps(self.in_caps)
+        W, H = info.width, info.height
+        ET.register_namespace("tt", ONVIF_SCHEMA)
+        root = ET.Element(f"{{{ONVIF_SCHEMA}}}MetadataStream")
+        va = ET.SubElement(root, f"{{{ONVIF_SCHEMA}}}VideoAnalytics")
+        frame = ET.SubElement(va, f"{{{ONVIF_SCHEMA}}}Frame")
+        frame.set("UtcTime", "1970-01-01T00:00:00.000Z")
+        for d in rm.detections:
+            obj = ET.SubElement(frame, f"{{{ONVIF_SCHEMA}}}Object")
+            obj.set("ObjectId", str(d.class_id))
+            app = ET.SubElement(obj, f"{{{ONVIF_SCHEMA}}}Appearance")
+            shape = ET.SubElement(app, f"{{{ONVIF_SCHEMA}}}Shape")
+            bbox = ET.SubElement(shape,
+                                 f"{{{ONVIF_SCHEMA}}}BoundingBox")
+            bbox.set("left", f"{d.x / W * 2 - 1:.6f}")
+            bbox.set("right", f"{(d.x + d.w) / W * 2 - 1:.6f}")
+            bbox.set("top", f"{1 - d.y / H * 2:.6f}")
+            bbox.set("bottom", f"{1 - (d.y + d.h) / H * 2:.6f}")
+        buf.add_meta(OnvifMetadataFrameMeta(ET.tostring(root),
+                                            buf.pts))

@@ -6,14 +6,17 @@ checkpoint() writes it to an npz (no pickle: a checkpoint from an
 untrusted source must not run code on restore) together with a string
 of its structure; restore() checks the structure, each leaf's shape and
 dtype against a state of the same layout, and puts every tensor on that
-state's device. Bit-exact: resuming mid-stream continues with the same
-samples the uninterrupted run would produce.
+state's device; given a mesh (gstpu's `sharding=`), it gives this rank
+its rows of the stream axis. Bit-exact: resuming mid-stream continues
+with the same samples the uninterrupted run would produce.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from gstpu_torch.parallel.streams import shard_slice
 
 
 def _flatten(tree, leaves: list) -> str:
@@ -59,9 +62,14 @@ def checkpoint(path: str, state, step: int = 0) -> None:
     np.savez(path, **host)
 
 
-def restore(path: str, like_state):
+def restore(path: str, like_state, *, mesh=None):
     """-> (state, step). `like_state` supplies the structure, and the
-    device of each tensor leaf."""
+    device of each tensor leaf.
+
+    With a `mesh` (gstpu_torch.parallel.streams.make_mesh) the
+    checkpoint is the global state and `like_state` this rank's local
+    one: each leaf of ndim >= 1 gets this rank's rows of the "stream"
+    dim, 0-dim leaves and host ints are replicated."""
     leaves_like: list = []
     treedef = _flatten(like_state, leaves_like)
     with np.load(path) as z:
@@ -72,6 +80,9 @@ def restore(path: str, like_state):
         leaves = []
         for i, like in enumerate(leaves_like):
             arr = z[f"leaf_{i}"]
+            if mesh is not None and arr.ndim >= 1:
+                rows = shard_slice(arr.shape[0], mesh, ("stream",))
+                arr = arr[rows].copy()
             if not isinstance(like, torch.Tensor):
                 leaves.append(int(arr))
                 continue

@@ -7,7 +7,8 @@ changes) and record pipeline telemetry. Activation mirrors GStreamer:
 or programmatically via install().
 
 Built-ins: queue-levels, pad-push-timings, buffer-lateness,
-pcap-writer, memory-tracer, pipeline-snapshot (DOT dump helper).
+pcap-writer, memory-tracer, chrome-tracer, fmt-tracer, torch-profiler,
+pipeline-snapshot (DOT dump helper).
 """
 
 from __future__ import annotations
@@ -271,6 +272,72 @@ class FmtTracer(Tracer):
                       (time.monotonic_ns() - t0) / 1000.0)
 
 
+class TorchProfilerTracer(Tracer):
+    """Profiling bridge (the port's counterpart of gstpu's
+    JaxProfilerTracer): runs the pipeline's dataflow under
+    torch.profiler, so device kernels land in a Chrome trace beside a
+    `pad_push:<element>:<pad>` span for each pad push.
+
+    Pad pushes run on the threads that drive the pipelines (each
+    `run_async` starts one), and a plain profile records only the thread
+    that started it; the profile is taken over all threads
+    (`profile_all_threads`)."""
+
+    HOOKS = {"pad-push-pre": "pre", "pad-push-post": "post"}
+
+    def __init__(self, logdir: str | None = None):
+        import tempfile
+        logdir = logdir or os.path.join(tempfile.gettempdir(),
+                                        "gstpu-torch-trace")
+        super().__init__(logdir=logdir)
+        self.logdir = logdir
+        self.trace_path: str | None = None
+        self._spans: dict[int, Any] = {}
+        self._prof = None
+
+    def install(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from gstpu_torch.core.device import default_device
+        acts = [ProfilerActivity.CPU]
+        if default_device().type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._prof = profile(
+            activities=acts,
+            experimental_config=torch._C._profiler._ExperimentalConfig(
+                profile_all_threads=True))
+        self._prof.start()
+        super().install()
+
+    def pre(self, pad, buf) -> None:
+        from torch.profiler import record_function
+        el = pad.element.name if pad.element else "?"
+        span = record_function(f"pad_push:{el}:{pad.name}")
+        span.__enter__()
+        self._spans[id(pad)] = span
+
+    def post(self, pad, buf) -> None:
+        span = self._spans.pop(id(pad), None)
+        if span is not None:
+            span.__exit__(None, None, None)
+
+    def flush(self) -> None:
+        """Close any open spans, stop the profile and write its Chrome
+        trace into logdir (`trace_path`)."""
+        if self._prof is None:
+            return
+        for span in list(self._spans.values()):
+            span.__exit__(None, None, None)
+        self._spans.clear()
+        self._prof.stop()
+        os.makedirs(self.logdir, exist_ok=True)
+        self.trace_path = os.path.join(
+            self.logdir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+        self._prof.export_chrome_trace(self.trace_path)
+        self._prof = None
+
+
 _TRACERS = {
     "pad-push-timings": PadPushTimings,
     "queue-levels": QueueLevels,
@@ -279,6 +346,7 @@ _TRACERS = {
     "memory-tracer": MemoryTracer,
     "chrome-tracer": ChromeTracer,
     "fmt-tracer": FmtTracer,
+    "torch-profiler": TorchProfilerTracer,
 }
 
 

@@ -99,6 +99,8 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.elements.video.compositor\n"
             "import gstpu_torch.elements.analytics.analytics\n"
             "import gstpu_torch.ops.yolox, gstpu_torch.ops.detection\n"
+            "import gstpu_torch.parallel.streams\n"
+            "import gstpu_torch.elements.net.onvif\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
@@ -130,17 +132,17 @@ def test_port_has_its_own_registry():
              "videoscale", "videoconvert", "compositor", "skiacompositor",
              "yoloxinference", "yoloxtensordec", "burn-yoloxinference",
              "analyticscombiner", "analyticssplitter",
-             "handdetectiontensordec")
+             "handdetectiontensordec", "onvifmeta2relationmeta",
+             "relationmeta2onvifmeta")
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
         assert port.__module__.startswith("gstpu_torch.")
         assert ref.__module__.startswith("gstpu.")
     assert set(names) <= set(list_factories())
-    # gstpu's ONVIF converters need its ONVIF elements, not in the port
-    onvif = {"onvifmeta2relationmeta", "relationmeta2onvifmeta"}
-    assert onvif <= set(gstpu.core.registry.list_factories())
-    assert not onvif & set(list_factories())
+    # the ONVIF converters are ported; gstpu's RTP payloaders are not
+    assert not {"onvifmetadatapay", "onvifmetadatadepay"} \
+        & set(list_factories())
 
 
 def test_rsaudioecho_with_context_raises():

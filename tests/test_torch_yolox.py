@@ -449,3 +449,55 @@ def test_handdetectiontensordec():
     assert [dataclasses.astuple(x) for x in rm.detections] == \
         [dataclasses.astuple(x) for x in want.detections]
     jh.teardown()
+
+
+def _onvif_round_trip(pkg):
+    """tests/test_yolox.py::test_onvif_relationmeta_roundtrip in `pkg`
+    (gstpu or gstpu_torch): detections -> ONVIF XML -> detections.
+    Returns (the XML meta's bytes, the detections read back)."""
+    import importlib
+    harness = importlib.import_module(f"{pkg}.core.harness")
+    registry = importlib.import_module(f"{pkg}.core.registry")
+    video = importlib.import_module(f"{pkg}.core.video")
+    analytics = importlib.import_module(
+        f"{pkg}.elements.analytics.analytics")
+    onvif = importlib.import_module(f"{pkg}.elements.net.onvif")
+    detection = importlib.import_module(f"{pkg}.ops.detection")
+    vi = video.VideoInfo("RGB", 100, 200)
+    caps = ("video/x-raw, format=RGB, width=100, height=200, "
+            "framerate=30/1")
+    to_xml = harness.Harness(registry.make("relationmeta2onvifmeta"))
+    to_xml.set_caps(caps)
+    b = vi.make_buffer(np.zeros((200, 100, 3), np.uint8))
+    b.add_meta(analytics.AnalyticsRelationMeta(
+        [detection.Detection(x=25, y=50, w=50, h=100, score=1.0,
+                             class_id=7),
+         detection.Detection(x=3.5, y=0.25, w=96.5, h=199.75, score=0.4,
+                             class_id=0)]))
+    to_xml.push(b)
+    om = to_xml.pull().get_meta(onvif.OnvifMetadataFrameMeta)
+    to_xml.teardown()
+    assert om is not None and b"BoundingBox" in om.data
+    back = harness.Harness(registry.make("onvifmeta2relationmeta"))
+    back.set_caps(caps)
+    b2 = vi.make_buffer(np.zeros((200, 100, 3), np.uint8))
+    b2.add_meta(om)
+    back.push(b2)
+    rm = back.pull().get_meta(analytics.AnalyticsRelationMeta)
+    back.teardown()
+    return om.data, rm.detections
+
+
+def test_onvif_relationmeta_roundtrip():
+    """Twin of tests/test_yolox.py::test_onvif_relationmeta_roundtrip:
+    the port's converters give gstpu's XML byte for byte and gstpu's
+    detections on the same metas."""
+    gstpu.init()
+    xml, dets = _onvif_round_trip("gstpu_torch")
+    want_xml, want = _onvif_round_trip("gstpu")
+    assert xml == want_xml
+    assert [dataclasses.astuple(d) for d in dets] == \
+        [dataclasses.astuple(d) for d in want]
+    d = dets[0]
+    assert (round(d.x), round(d.y), round(d.w), round(d.h),
+            d.class_id) == (25, 50, 50, 100, 7)
