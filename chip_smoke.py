@@ -137,11 +137,31 @@ of every kernel library in DIR and needs no card.)
    colorlut ! appsink` string twice, each pipeline driven by a streaming
    thread of its own, under the torch-profiler tracer: the Chrome trace
    holds pad_push spans from both threads and every launch of both CUDA
-   kernels inside one, with their device time.
+   kernels inside one, with their device time;
+13. runs the host edge, files through the device chains into files: (a)
+   a seeded 4 s 48 kHz S16 stereo FLAC file (the port's encode_verbatim)
+   through `filesrc ! claxondec ! audioconvert ! F64LE ! audioresample !
+   192 kHz ! rsaudioecho ! audioloudnorm ! ebur128level ! isomp4mux !
+   filesink` with the flagship's settings on the card, under a pad-push
+   tracer and the profiler: the echo's output a CUDA tensor, the host ms
+   per second of audio for the decode, with the convert, with the
+   resampler and for the whole string, the device's busy ms, the host ms
+   of one download of a chain buffer; then the same string on the CPU:
+   every box but mdat byte for byte, mdat's F64 samples within 1e-12, 4 n
+   - 35 samples for n input frames; (b) BASELINE config 4's 1080p RGBA
+   through `videotestsrc ! hsvfilter ! colorlut ! isomp4mux ! filesink`
+   (a seeded 33^3 LUT, phase 3's settings), 16 frames with the kernels'
+   counts set to 0 just before: 16 launches of each, the file byte for
+   byte the CPU's through the plain versions, an RGBA uncC sample entry,
+   fps beside the same string into fakesink; (c) `rsflvdemux` on an FLV
+   from the port's FlvWriter, `mpegtsmux ! filesink` on seeded H.264
+   access units and 13a's output through `isofmp4mux ! filesink`, each
+   byte for byte between the card's default device and the CPU.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
-of the analytics path and of the parallel layer, the card's name and
+of the analytics path, of the parallel layer and of the host edge, the
+card's name and
 power limit, one JSON line of kernels and last `{"ok": true, "device":
 {...}}`. Any failed phase raises, and the script then exits non-zero
 without that last line; so does a machine without CUDA or a directory
@@ -281,6 +301,18 @@ LIGHT_TARGET = 0.1
 LIGHT_OUT_TOL, LIGHT_LOUD_TOL_DB, LIGHT_GAIN_RTOL = 2.4e-7, 1e-5, 1e-6
 # the traced string (phase 12c): frames a pipeline
 TRACE_FRAMES = 8
+# the host edge (phase 13a): a seeded 4 s 48 kHz S16 stereo FLAC file
+# resampled to 192 kHz F64 for the flagship chain (audioloudnorm's first
+# frame is 3 s), into an MP4; the card against the CPU within the
+# flagship's gate. audioresample's 16-tap window ends 9 inputs before
+# the end of the stream, so an up-by-4 stream of n inputs gives
+# 4 * (n - 9) + 1 = 4 n - 35 outputs.
+EDGE_RATE, EDGE_SECONDS = 48_000, 4.0
+EDGE_TOL = 1e-12
+EDGE_RESAMPLER_EDGE = 35
+EDGE_DOWNLOADS = 20          # timed downloads of one chain buffer
+# 13b: BASELINE config 4's 1080p RGBA through both kernels into an MP4
+EDGE_W, EDGE_H, EDGE_FRAMES = 1920, 1080, 16
 
 
 def log(*args) -> None:
@@ -2811,6 +2843,350 @@ def trace_phase(gstpu_torch, dev, smi, tmp: Path, kernels) -> dict:
     return res
 
 
+def edge_signal(seconds: float, rate: int) -> np.ndarray:
+    """Seeded S16 stereo: two tones whose level steps every second, plus
+    noise, so the loudness normaliser moves its gain."""
+    rng = np.random.default_rng(SEED)
+    t = np.arange(int(seconds * rate)) / rate
+    level = 0.15 + 0.5 * (np.floor(t) % 2)
+    x = np.stack([level * np.sin(2 * np.pi * 440 * t),
+                  0.7 * level * np.sin(2 * np.pi * 660 * t + 0.3)], 1)
+    x += 0.01 * rng.standard_normal(x.shape)
+    return np.round(np.clip(x, -1, 1) * 32767).astype(np.int16)
+
+
+def run_file_string(gstpu_torch, device: str, launch: str):
+    """Run a file-to-file launch string to its end on `device`: the
+    pipeline (in NULL) and its wall seconds."""
+    gstpu_torch.init(device=device)
+    p = gstpu_torch.parse_launch(launch)
+    p.set_state(gstpu_torch.State.PLAYING)
+    t0 = time.perf_counter()
+    p.run(timeout=600)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    p.set_state(gstpu_torch.State.NULL)
+    return p, dt
+
+
+def mp4_boxes(data: bytes) -> dict:
+    """The top-level boxes of a non-fragmented MP4, which must be ftyp,
+    mdat and moov."""
+    from gstpu_torch.mux.boxes import parse_boxes
+    tree = parse_boxes(data)
+    if [b.fourcc for b in tree] != ["ftyp", "mdat", "moov"]:
+        raise AssertionError(f"not an ftyp/mdat/moov file: "
+                             f"{[b.fourcc for b in tree]}")
+    return {b.fourcc: b for b in tree}
+
+
+def mp4_stsd(moov) -> bytes:
+    from gstpu_torch.mux.boxes import parse_boxes
+    stbl = moov.find("trak.mdia.minf.stbl")
+    return next(c for c in parse_boxes(stbl.data) if c.fourcc == "stsd").data
+
+
+def mp4_sample_bytes(moov) -> int:
+    """The bytes of every sample the moov's sample table lists."""
+    from gstpu_torch.mux.boxes import parse_boxes
+    stbl = moov.find("trak.mdia.minf.stbl")
+    stsz = next(c for c in parse_boxes(stbl.data) if c.fourcc == "stsz")
+    count = int.from_bytes(stsz.data[8:12], "big")
+    return int(np.frombuffer(stsz.data[12:12 + 4 * count], ">u4")
+               .astype(np.int64).sum())
+
+
+def push_tracer():
+    """A tracer on the port's pad-push hooks: per pad, the host seconds
+    inside its buffer pushes (inclusive of everything downstream), the
+    pushes, and where its first payload lay."""
+    from gstpu_torch.utils.tracing import Tracer
+
+    class PushTimes(Tracer):
+        HOOKS = {"pad-push-pre": "pre", "pad-push-post": "post"}
+
+        def __init__(self):
+            super().__init__()
+            self.t0: dict = {}
+            self.seconds: dict = {}
+            self.pushes: dict = {}
+            self.payload: dict = {}
+
+        def pre(self, pad, buf) -> None:
+            self.t0[pad] = time.perf_counter()
+            d = buf.data
+            self.payload.setdefault(pad, (
+                f"tensor on {d.device.type}" if isinstance(d, torch.Tensor)
+                else type(d).__name__))
+
+        def post(self, pad, buf) -> None:
+            self.seconds[pad] = self.seconds.get(pad, 0.0) \
+                + time.perf_counter() - self.t0.pop(pad)
+            self.pushes[pad] = self.pushes.get(pad, 0) + 1
+
+    return PushTimes()
+
+
+def edge_audio_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
+    """13a. A seeded 48 kHz S16 stereo FLAC file through `filesrc !
+    claxondec ! audioconvert ! F64LE ! audioresample ! 192 kHz !
+    rsaudioecho ! audioloudnorm ! ebur128level ! isomp4mux ! filesink` on
+    the card (the flagship's settings) and on the CPU: the echo's output a
+    CUDA tensor, every box but mdat byte for byte, mdat's F64 samples
+    within the flagship's gate, 4 n - 35 samples; host ms per second of
+    audio by stage, the downloads' host ms and the device's busy ms."""
+    from gstpu_torch.codecs.flac import encode_verbatim
+    from gstpu_torch.core.buffer import Buffer
+    x = edge_signal(EDGE_SECONDS, EDGE_RATE)
+    src = tmp / "in.flac"
+    src.write_bytes(encode_verbatim(x, EDGE_RATE))
+
+    def launch(dst: Path) -> str:
+        return (f"filesrc location={src} ! claxondec name=dec ! "
+                f"audioconvert name=conv ! audio/x-raw, format=F64LE ! "
+                f"audioresample name=res ! audio/x-raw, rate={RATE_192K} ! "
+                f"rsaudioecho name=echo delay=250000000 intensity="
+                f"{AUDIO_INTENSITY} feedback={AUDIO_FEEDBACK} ! "
+                f"audioloudnorm name=norm ! ebur128level ! isomp4mux ! "
+                f"filesink location={dst}")
+
+    tracer = push_tracer()
+    tracer.install()
+    try:
+        holder = {}
+
+        def card_run():
+            holder["p"], holder["dt"] = run_file_string(
+                gstpu_torch, "cuda", launch(tmp / "card.mp4"))
+
+        kern, _ = device_events(card_run, 1)
+    finally:
+        tracer.uninstall()
+    p, wall = holder["p"], holder["dt"]
+    filesrc = next(e for e in p.children if e.ELEMENT_NAME == "filesrc")
+    pads = {"src": filesrc.static_pad("src")}
+    for n in ("dec", "conv", "res", "echo", "norm"):
+        pads[n] = p.get_by_name(n).static_pad("src")
+    pads["res_in"] = p.get_by_name("res").static_pad("sink").peer
+    pads["echo_in"] = p.get_by_name("echo").static_pad("sink").peer
+    t = {k: tracer.seconds.get(v, 0.0) for k, v in pads.items()}
+    echo_payload = tracer.payload.get(pads["echo"])
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    per_s = 1e3 / EDGE_SECONDS
+    stages = {
+        "decode": (t["src"] - t["dec"]) * per_s,
+        "decode_convert": (t["src"] - t["conv"]) * per_s,
+        "decode_convert_resample": (t["src"] - t["res"]) * per_s,
+        "whole_string": wall * per_s,
+    }
+    own = {"convert": (t["dec"] - t["conv"]) * per_s,
+           "resample": (t["res_in"] - t["res"]) * per_s,
+           "echo": (t["echo_in"] - t["echo"]) * per_s,
+           "loudnorm_and_after": t["echo"] * per_s}
+    log(f"[edge] the FLAC string on the card: {EDGE_SECONDS} s of "
+        f"{EDGE_RATE} Hz stereo in {wall:.3f} s (tracer and profiler on); "
+        f"host ms per second of audio: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+        + "; each stage's own: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in own.items())
+        + f"; the device busy {busy_ms:.4f} ms in {len(kern)} kernels and "
+        f"copies; the echo's output: {echo_payload}  [{smi}]")
+    if echo_payload != "tensor on cuda":
+        raise AssertionError(f"the echo's output lies on {echo_payload}, "
+                             f"not the card")
+
+    # the downloads: audioloudnorm reads each echo buffer through
+    # Buffer.array, one device-to-host copy and sync a buffer
+    n_buf = tracer.pushes.get(pads["echo"], 0)
+    frames = 4 * 4096                   # a FLAC frame of 4096, resampled
+    y = torch.randn(frames, 2, dtype=torch.float64, device=dev)
+    dl = []
+    for _ in range(EDGE_DOWNLOADS):
+        b = Buffer(y * 1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.array
+        dl.append(time.perf_counter() - t0)
+    download_ms = statistics.median(dl) * 1e3
+    log(f"[edge] a download of one {frames}-frame F64 stereo buffer: "
+        f"{download_ms:.4f} ms on the host (median of {EDGE_DOWNLOADS}); "
+        f"{n_buf} echo buffers in the run, ~{n_buf * download_ms:.2f} ms "
+        f"in all")
+
+    _, cpu_wall = run_file_string(gstpu_torch, "cpu", launch(tmp / "cpu.mp4"))
+    card, cpu = (mp4_boxes((tmp / f).read_bytes())
+                 for f in ("card.mp4", "cpu.mp4"))
+    for name in ("ftyp", "moov"):
+        if card[name].data != cpu[name].data:
+            raise AssertionError(f"the card's MP4 {name} differs from the "
+                                 f"CPU's")
+    got = np.frombuffer(card["mdat"].data, "<f8").reshape(-1, 2)
+    want = np.frombuffer(cpu["mdat"].data, "<f8").reshape(-1, 2)
+    err = float(np.abs(got - want).max())
+    n_out = mp4_sample_bytes(card["moov"]) // 16
+    expect = 4 * x.shape[0] - EDGE_RESAMPLER_EDGE
+    stsd = mp4_stsd(card["moov"])
+    log(f"[edge] card vs CPU: ftyp and moov equal, mdat max |err| {err:.3e} "
+        f"(gate {EDGE_TOL}); {n_out} samples of 192 kHz stereo (4 x "
+        f"{x.shape[0]} - {EDGE_RESAMPLER_EDGE} = {expect}); the CPU string "
+        f"{cpu_wall:.3f} s")
+    if not np.isfinite(got).all() or err > EDGE_TOL:
+        raise AssertionError("the card's samples are not within the gate")
+    if got.shape[0] != n_out or n_out != expect:
+        raise AssertionError(f"{n_out} samples in the MP4, {expect} "
+                             f"expected")
+    if b"fpcm" not in stsd or b"pcmC" not in stsd:
+        raise AssertionError("the MP4's sample entry is not fpcm")
+    return {"seconds_of_audio": EDGE_SECONDS, "wall_s": wall,
+            "cpu_wall_s": cpu_wall, "host_ms_per_s": stages,
+            "own_host_ms_per_s": own, "busy_ms": busy_ms,
+            "device_events": len(kern), "echo_buffers": n_buf,
+            "download_ms_a_buffer": download_ms, "max_abs_err": err,
+            "samples": n_out, "echo_output": echo_payload}
+
+
+def edge_video_phase(gstpu_torch, dev, smi, tmp: Path, kernels) -> dict:
+    """13b. BASELINE config 4's 1080p RGBA through `videotestsrc !
+    hsvfilter ! colorlut ! isomp4mux ! filesink` on the card: each
+    kernel launched once a frame, the file byte for byte the one the same
+    string writes on the CPU through the plain versions, the uncC sample
+    entry RGBA; fps beside the same string into fakesink."""
+    cube = tmp / "edge.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+
+    def launch(n: int, tail: str) -> str:
+        return (f"videotestsrc num-buffers={n} pattern=snow ! video/x-raw, "
+                f"format=RGBA, width={EDGE_W}, height={EDGE_H}, "
+                f"framerate=30/1 ! hsvfilter hue_shift=12 saturation_mul=1.1 "
+                f"value_mul=0.9 value_off=0.02 ! colorlut location={cube} ! "
+                f"{tail}")
+
+    mp4 = f"isomp4mux ! filesink location={tmp / 'card_video.mp4'}"
+    run_file_string(gstpu_torch, "cuda", launch(1, mp4))
+    for k in kernels:
+        k.launches = 0
+    _, dt = run_file_string(gstpu_torch, "cuda", launch(EDGE_FRAMES, mp4))
+    launches = {k.name: k.launches for k in kernels}
+    _, dt_fake = run_file_string(gstpu_torch, "cuda",
+                                 launch(EDGE_FRAMES, "fakesink"))
+    run_file_string(gstpu_torch, "cpu", launch(
+        EDGE_FRAMES, f"isomp4mux ! filesink location={tmp / 'cpu_video.mp4'}"))
+    card = (tmp / "card_video.mp4").read_bytes()
+    same = card == (tmp / "cpu_video.mp4").read_bytes()
+    boxes = mp4_boxes(card)
+    stsd = mp4_stsd(boxes["moov"])
+    i = stsd.find(b"uncC")
+    rgba = (b"uncv" in stsd and i >= 0 and stsd[i + 4] == 1
+            and stsd[i + 8:i + 12] == b"rgba")
+    n_bytes = mp4_sample_bytes(boxes["moov"])
+    res = {"frames": EDGE_FRAMES, "fps_mp4": EDGE_FRAMES / dt,
+           "fps_fakesink": EDGE_FRAMES / dt_fake, "launches": launches,
+           "file_bytes": len(card), "equal_to_cpu": same, "uncC_rgba": rgba}
+    log(f"[edge] {EDGE_FRAMES} frames of {EDGE_W}x{EDGE_H} RGBA through "
+        f"`hsvfilter ! colorlut ! isomp4mux ! filesink`: "
+        f"{res['fps_mp4']:.2f} fps; into fakesink {res['fps_fakesink']:.2f}"
+        f" fps; launches {launches}; the {len(card)} B file "
+        f"{'equals' if same else 'DIFFERS FROM'} the CPU's; uncC RGBA "
+        f"{rgba}  [{smi}]")
+    if not same or not rgba or n_bytes != EDGE_FRAMES * EDGE_W * EDGE_H * 4:
+        raise AssertionError("the 1080p MP4 differs from the CPU's or is "
+                             "not RGBA uncv")
+    if any(n != EDGE_FRAMES for n in launches.values()):
+        raise AssertionError(f"the kernels launched {launches} times, not "
+                             f"once a frame")
+    return res
+
+
+def edge_container_phase(gstpu_torch, smi, tmp: Path) -> dict:
+    """13c. The containers in the card's Python, on the card's default
+    device and on the CPU, byte for byte: `rsflvdemux` on an FLV from the
+    port's FlvWriter, `mpegtsmux ! filesink` on seeded H.264 access
+    units (the mux takes coded streams only), and 13a's 192 kHz output
+    through `isofmp4mux ! filesink` (read from 13a's CPU file in
+    `tmp`)."""
+    from gstpu_torch.mux.flv import FlvWriter
+    w = FlvWriter()
+    w.video_tag(0, b"\x01seqhdr", codec=7, keyframe=True,
+                avc_packet_type=0)
+    rng = np.random.default_rng(SEED)
+    for i in range(30):
+        w.video_tag(i * 40, rng.integers(0, 256, 500, np.uint8).tobytes(),
+                    codec=7, keyframe=(i % 10 == 0))
+        w.audio_tag(i * 40, rng.integers(0, 256, 200, np.uint8).tobytes(),
+                    sound_format=2)
+    flv = tmp / "in.flv"
+    flv.write_bytes(w.to_bytes())
+    aus = [(b"\x00\x00\x00\x01" + (b"\x65" if i % 10 == 0 else b"\x41")
+            + rng.integers(0, 256, 2000 + 97 * i, np.uint8).tobytes())
+           for i in range(30)]
+    pcm = np.frombuffer(mp4_boxes((tmp / "cpu.mp4").read_bytes())["mdat"]
+                        .data, "<f8")
+    res = {}
+    for device in ("cuda", "cpu"):
+        gstpu_torch.init(device=device)
+        p = gstpu_torch.parse_launch(f"filesrc location={flv} ! "
+                                     f"rsflvdemux name=d")
+        sinks = {"audio": gstpu_torch.make("appsink"),
+                 "video": gstpu_torch.make("appsink")}
+        p.add(*sinks.values())
+        p.get_by_name("d").connect("pad-added", lambda el, pad: pad.link(
+            sinks["audio" if pad.name == "audio" else "video"]
+            .static_pad("sink")))
+        p.set_state(gstpu_torch.State.PLAYING)
+        p.run(timeout=600)
+        demuxed = {k: (repr(s.caps), [(b.to_bytes(), b.pts, b.duration)
+                                      for b in s.pull_all()])
+                   for k, s in sinks.items()}
+        p.set_state(gstpu_torch.State.NULL)
+        ts = tmp / f"{device}.ts"
+        p = gstpu_torch.parse_launch(
+            f'appsrc name=src caps="video/x-h264, stream-format=byte-stream,'
+            f' width={EDGE_W}, height={EDGE_H}" ! mpegtsmux ! filesink '
+            f'location={ts}')
+        p.set_state(gstpu_torch.State.PLAYING)
+        s = p.get_by_name("src")
+        for i, au in enumerate(aus):
+            b = gstpu_torch.Buffer(au, pts=i * 33_333_333,
+                                   duration=33_333_333)
+            if i % 10:
+                b.set_flag(gstpu_torch.BufferFlags.DELTA_UNIT)
+            s.push_buffer(b)
+        s.end_of_stream()
+        p.run(timeout=600)
+        p.set_state(gstpu_torch.State.NULL)
+        frag = tmp / f"{device}.fmp4"
+        p = gstpu_torch.parse_launch(
+            f'appsrc name=src caps="audio/x-raw, format=F64LE, rate='
+            f'{RATE_192K}, channels=2, layout=interleaved" ! isofmp4mux '
+            f'fragment-duration=1000000000 ! filesink location={frag}')
+        p.set_state(gstpu_torch.State.PLAYING)
+        s = p.get_by_name("src")
+        block = 2 * RATE_192K // 10                 # 100 ms of stereo
+        for i, off in enumerate(range(0, pcm.size, block)):
+            s.push_buffer(gstpu_torch.Buffer(
+                pcm[off:off + block].reshape(-1, 2).copy(),
+                pts=i * 100_000_000, duration=100_000_000))
+        s.end_of_stream()
+        p.run(timeout=600)
+        p.set_state(gstpu_torch.State.NULL)
+        res[device] = (demuxed, ts.read_bytes(), frag.read_bytes())
+    card, cpu = res["cuda"], res["cpu"]
+    out = {"flv_buffers": {k: len(v[1]) for k, v in card[0].items()},
+           "ts_bytes": len(card[1]), "fmp4_bytes": len(card[2]),
+           "equal": [card[i] == cpu[i] for i in range(3)]}
+    log(f"[edge] containers on the card's default device vs the CPU: "
+        f"rsflvdemux {out['flv_buffers']} buffers, mpegtsmux "
+        f"{out['ts_bytes']} B, isofmp4mux of 13a's samples "
+        f"{out['fmp4_bytes']} B; equal {out['equal']}  [{smi}]")
+    if not all(out["equal"]) or out["flv_buffers"] != {"audio": 30,
+                                                        "video": 30} \
+            or out["ts_bytes"] % 188 or not pcm.size:
+        raise AssertionError("a container differs between the card's "
+                             "default device and the CPU")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -3174,9 +3550,19 @@ def main() -> int:
     for row in rows:
         row["launches_traced"] = \
             parallel["trace"]["kernels"][row["name"]]["launches"]
+    # 13. the host edge: files through the device chains into files
+    t13 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        edge = {"audio": edge_audio_phase(gstpu_torch, dev, smi, Path(tmp)),
+                "video": edge_video_phase(gstpu_torch, dev, smi, Path(tmp),
+                                          kernels),
+                "containers": edge_container_phase(gstpu_torch, smi,
+                                                   Path(tmp))}
+    for row in rows:
+        row["launches_file"] = edge["video"]["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
-                               "11": t12 - t11,
-                               "12": time.monotonic() - t12})
+                               "11": t12 - t11, "12": t13 - t12,
+                               "13": time.monotonic() - t13})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -3188,6 +3574,7 @@ def main() -> int:
     log(json.dumps({"codec": codec}))
     log(json.dumps({"analytics": analytics}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"host_edge": edge}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ _MODULES = [
     "gstpu_torch.elements.generic.basic",
     "gstpu_torch.elements.generic.app",
     "gstpu_torch.elements.generic.testsrc",
+    "gstpu_torch.elements.generic.file",
     "gstpu_torch.elements.video.hsv",
     "gstpu_torch.elements.video.colorlut",
     "gstpu_torch.elements.video.av1",
@@ -24,6 +25,12 @@ _MODULES = [
     "gstpu_torch.elements.audio.loudnorm",
     "gstpu_torch.elements.audio.rnnoise",
     "gstpu_torch.elements.audio.hrtf",
+    "gstpu_torch.elements.audio.convert",
+    "gstpu_torch.elements.audio.claxon",
+    "gstpu_torch.elements.audio.lewton",
+    "gstpu_torch.elements.mux.fmp4",
+    "gstpu_torch.elements.mux.mpegts",
+    "gstpu_torch.elements.mux.flvdemux",
 ]
 
 _registered = False

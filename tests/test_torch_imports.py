@@ -101,6 +101,16 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.ops.yolox, gstpu_torch.ops.detection\n"
             "import gstpu_torch.parallel.streams\n"
             "import gstpu_torch.elements.net.onvif\n"
+            "import gstpu_torch.elements.generic.file\n"
+            "import gstpu_torch.elements.audio.convert\n"
+            "import gstpu_torch.codecs.flac, gstpu_torch.codecs.ogg\n"
+            "import gstpu_torch.codecs.vorbis, gstpu_torch.codecs.mpegts\n"
+            "import gstpu_torch.elements.audio.claxon\n"
+            "import gstpu_torch.elements.audio.lewton\n"
+            "import gstpu_torch.mux.boxes, gstpu_torch.mux.flv\n"
+            "import gstpu_torch.elements.mux.fmp4\n"
+            "import gstpu_torch.elements.mux.flvdemux\n"
+            "import gstpu_torch.elements.mux.mpegts\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
@@ -123,7 +133,9 @@ def test_init_cuda_raises_without_a_gpu():
 def test_port_has_its_own_registry():
     import gstpu
     from gstpu.core.registry import element_factory as jax_factory
-    from gstpu_torch.core.registry import element_factory, list_factories
+    from gstpu.core.registry import element_rank as jax_rank
+    from gstpu_torch.core.registry import (element_factory, element_rank,
+                                           list_factories)
     gstpu.init()
     gstpu_torch.init(device="cpu")
     names = ("hsvfilter", "hsvdetector", "colorlut", "appsrc",
@@ -133,13 +145,21 @@ def test_port_has_its_own_registry():
              "yoloxinference", "yoloxtensordec", "burn-yoloxinference",
              "analyticscombiner", "analyticssplitter",
              "handdetectiontensordec", "onvifmeta2relationmeta",
-             "relationmeta2onvifmeta")
+             "relationmeta2onvifmeta",
+             # the file-to-file host edge
+             "filesrc", "filesink", "audioconvert", "audioresample",
+             "audiomixer", "claxondec", "oggdemux", "lewtondec",
+             "isomp4mux", "isofmp4mux", "cmafmux", "dashmp4mux",
+             "onviffmp4mux", "onvifmp4mux", "rsflvdemux", "mpegtsmux",
+             "hlssink3")
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
         assert port.__module__.startswith("gstpu_torch.")
         assert ref.__module__.startswith("gstpu.")
+        assert element_rank(name) == jax_rank(name), name
     assert set(names) <= set(list_factories())
+    assert len(list_factories()) == 51
     # the ONVIF converters are ported; gstpu's RTP payloaders are not
     assert not {"onvifmetadatapay", "onvifmetadatadepay"} \
         & set(list_factories())
