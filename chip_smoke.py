@@ -156,14 +156,35 @@ of every kernel library in DIR and needs no card.)
    fps beside the same string into fakesink; (c) `rsflvdemux` on an FLV
    from the port's FlvWriter, `mpegtsmux ! filesink` on seeded H.264
    access units and 13a's output through `isofmp4mux ! filesink`, each
-   byte for byte between the card's default device and the CPU.
+   byte for byte between the card's default device and the CPU;
+14. runs the host codecs and images behind the card's chains, after
+   checking that the C++ G.711 library builds and loads (a gate) and
+   whether PIL imports and the codec shim builds (what either stops is
+   named on a line, not run): (a) 13b's grade on 8 frames of 1080p RGBA
+   `videotestsrc pattern=snow ! hsvfilter ! colorlut ! colordetect ! tee`
+   into `videoconvert ! I420 ! roundedcorners border-radius-px=64 !
+   appsink`, `viuersink width=160 file=...` and `rspngenc ! filesink`
+   under the pad-push tracer: each kernel once a frame, the A420 frames,
+   the terminal text, the PNG file and the colordetect messages equal to
+   the CPU run's, fps and each element's host ms a frame; then
+   `videocompare` fed the card's graded frames and the CPU's posts
+   distance 0 for every frame; (b) the flagship's settings on 4 s of
+   192 kHz F64 stereo (the echo's output a CUDA tensor) `! audioloudnorm
+   ! rsagingradio ! audioconvert ! S16LE ! alawenc ! alawdec ! mulawenc !
+   mulawdec ! filesink`, and a 1 s telephony leg resampled to 8 kHz mono
+   before `alawenc`: each file the CPU's (else its differing codes
+   counted), the F64 samples before `audioconvert` within 1e-12, host ms
+   per second of audio by stage; (c) a seeded 2 s CD+G file through
+   `cdgparse ! cdgdec ! queue ! videoconvert ! RGBA ! hsvfilter !
+   colorlut`: each kernel once a frame, every frame the CPU's; (d) where
+   the codec shim builds, VP8, VP9 and Opus behind the chains, byte for
+   byte the CPU's.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
-of the analytics path, of the parallel layer and of the host edge, the
-card's name and
-power limit, one JSON line of kernels and last `{"ok": true, "device":
-{...}}`. Any failed phase raises, and the script then exits non-zero
+of the analytics path, of the parallel layer, of the host edge and of the
+host codecs, the card's name and power limit, one JSON line of kernels
+and last `{"ok": true, "device": {...}}`. Any failed phase raises, and the script then exits non-zero
 without that last line; so does a machine without CUDA or a directory
 without the gstpu_torch package.
 """
@@ -313,6 +334,17 @@ EDGE_RESAMPLER_EDGE = 35
 EDGE_DOWNLOADS = 20          # timed downloads of one chain buffer
 # 13b: BASELINE config 4's 1080p RGBA through both kernels into an MP4
 EDGE_W, EDGE_H, EDGE_FRAMES = 1920, 1080, 16
+# the host codecs and images (phase 14): 13b's grade and frame size into
+# the new video elements (14a), the flagship's 192 kHz output into G.711
+# and a telephony leg at 8 kHz mono (14b), a seeded CD+G file of 2 s
+# (300 packets a second) through both kernels (14c); the codec shim's
+# strings (14d) where libavcodec links
+GRADE_HSV = "hue_shift=12 saturation_mul=1.1 value_mul=0.9 value_off=0.02"
+CODECS_FRAMES, CODECS_RADIUS, VIUER_WIDTH = 8, 64, 160
+G711_SECONDS, PHONE_SECONDS, PHONE_RATE = 4.0, 1.0, 8_000
+CDG_PACKETS = 600
+VPX_FRAMES = 4
+OPUS_RATE, OPUS_SECONDS = 48_000, 1.0
 
 
 def log(*args) -> None:
@@ -2855,19 +2887,26 @@ def edge_signal(seconds: float, rate: int) -> np.ndarray:
     return np.round(np.clip(x, -1, 1) * 32767).astype(np.int16)
 
 
-def run_file_string(gstpu_torch, device: str, launch: str):
-    """Run a file-to-file launch string to its end on `device`: the
-    pipeline (in NULL) and its wall seconds."""
+def run_string(gstpu_torch, device: str, launch: str, sinks=(), feed=None):
+    """Run a launch string to its end on `device`, `feed(p)` pushing any
+    appsrc input first: the pipeline (in NULL), its wall seconds, each
+    named appsink's buffers and the element messages of its bus."""
+    from gstpu_torch.core.element import MessageType
     gstpu_torch.init(device=device)
     p = gstpu_torch.parse_launch(launch)
     p.set_state(gstpu_torch.State.PLAYING)
     t0 = time.perf_counter()
+    if feed is not None:
+        feed(p)
     p.run(timeout=600)
     if device != "cpu":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    out = {s: p.get_by_name(s).pull_all() for s in sinks}
+    msgs = [(m.name, m.fields) for m in p.bus.drain()
+            if m.type is MessageType.ELEMENT]
     p.set_state(gstpu_torch.State.NULL)
-    return p, dt
+    return p, dt, out, msgs
 
 
 def mp4_boxes(data: bytes) -> dict:
@@ -2897,10 +2936,18 @@ def mp4_sample_bytes(moov) -> int:
                .astype(np.int64).sum())
 
 
+def payload_kind(d) -> str:
+    """Where a buffer's payload lies: "tensor on cuda", "ndarray", ..."""
+    return (f"tensor on {d.device.type}" if isinstance(d, torch.Tensor)
+            else type(d).__name__)
+
+
 def push_tracer():
     """A tracer on the port's pad-push hooks: per pad, the host seconds
     inside its buffer pushes (inclusive of everything downstream), the
-    pushes, and where its first payload lay."""
+    same less the pushes nested in them (exclusive: the receiving
+    element's own work on the buffer), the pushes, and where its first
+    payload lay. One streaming thread."""
     from gstpu_torch.utils.tracing import Tracer
 
     class PushTimes(Tracer):
@@ -2910,19 +2957,23 @@ def push_tracer():
             super().__init__()
             self.t0: dict = {}
             self.seconds: dict = {}
+            self.exclusive: dict = {}
+            self.nested: list = []
             self.pushes: dict = {}
             self.payload: dict = {}
 
         def pre(self, pad, buf) -> None:
             self.t0[pad] = time.perf_counter()
-            d = buf.data
-            self.payload.setdefault(pad, (
-                f"tensor on {d.device.type}" if isinstance(d, torch.Tensor)
-                else type(d).__name__))
+            self.nested.append(0.0)
+            self.payload.setdefault(pad, payload_kind(buf.data))
 
         def post(self, pad, buf) -> None:
-            self.seconds[pad] = self.seconds.get(pad, 0.0) \
-                + time.perf_counter() - self.t0.pop(pad)
+            dt = time.perf_counter() - self.t0.pop(pad)
+            inner = self.nested.pop()
+            if self.nested:
+                self.nested[-1] += dt
+            self.seconds[pad] = self.seconds.get(pad, 0.0) + dt
+            self.exclusive[pad] = self.exclusive.get(pad, 0.0) + dt - inner
             self.pushes[pad] = self.pushes.get(pad, 0) + 1
 
     return PushTimes()
@@ -2957,7 +3008,7 @@ def edge_audio_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
         holder = {}
 
         def card_run():
-            holder["p"], holder["dt"] = run_file_string(
+            holder["p"], holder["dt"], _, _ = run_string(
                 gstpu_torch, "cuda", launch(tmp / "card.mp4"))
 
         kern, _ = device_events(card_run, 1)
@@ -3014,7 +3065,8 @@ def edge_audio_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
         f"{n_buf} echo buffers in the run, ~{n_buf * download_ms:.2f} ms "
         f"in all")
 
-    _, cpu_wall = run_file_string(gstpu_torch, "cpu", launch(tmp / "cpu.mp4"))
+    _, cpu_wall, _, _ = run_string(gstpu_torch, "cpu",
+                                   launch(tmp / "cpu.mp4"))
     card, cpu = (mp4_boxes((tmp / f).read_bytes())
                  for f in ("card.mp4", "cpu.mp4"))
     for name in ("ftyp", "moov"):
@@ -3058,19 +3110,18 @@ def edge_video_phase(gstpu_torch, dev, smi, tmp: Path, kernels) -> dict:
     def launch(n: int, tail: str) -> str:
         return (f"videotestsrc num-buffers={n} pattern=snow ! video/x-raw, "
                 f"format=RGBA, width={EDGE_W}, height={EDGE_H}, "
-                f"framerate=30/1 ! hsvfilter hue_shift=12 saturation_mul=1.1 "
-                f"value_mul=0.9 value_off=0.02 ! colorlut location={cube} ! "
-                f"{tail}")
+                f"framerate=30/1 ! hsvfilter {GRADE_HSV} ! colorlut "
+                f"location={cube} ! {tail}")
 
     mp4 = f"isomp4mux ! filesink location={tmp / 'card_video.mp4'}"
-    run_file_string(gstpu_torch, "cuda", launch(1, mp4))
+    run_string(gstpu_torch, "cuda", launch(1, mp4))
     for k in kernels:
         k.launches = 0
-    _, dt = run_file_string(gstpu_torch, "cuda", launch(EDGE_FRAMES, mp4))
+    _, dt, _, _ = run_string(gstpu_torch, "cuda", launch(EDGE_FRAMES, mp4))
     launches = {k.name: k.launches for k in kernels}
-    _, dt_fake = run_file_string(gstpu_torch, "cuda",
+    _, dt_fake, _, _ = run_string(gstpu_torch, "cuda",
                                  launch(EDGE_FRAMES, "fakesink"))
-    run_file_string(gstpu_torch, "cpu", launch(
+    run_string(gstpu_torch, "cpu", launch(
         EDGE_FRAMES, f"isomp4mux ! filesink location={tmp / 'cpu_video.mp4'}"))
     card = (tmp / "card_video.mp4").read_bytes()
     same = card == (tmp / "cpu_video.mp4").read_bytes()
@@ -3185,6 +3236,439 @@ def edge_container_phase(gstpu_torch, smi, tmp: Path) -> dict:
         raise AssertionError("a container differs between the card's "
                              "default device and the CPU")
     return out
+
+
+def own_ms(tracer, p, names: list, per: float) -> dict:
+    """Each named element's own host ms on the buffers pushed into it, per
+    `per` unit: the exclusive time of the pushes into its sink pad. Work
+    an element does at EOS (a drain) falls outside every buffer push."""
+    return {n: tracer.exclusive.get(
+        p.get_by_name(n).static_pad("sink").peer, 0.0) * 1e3 / per
+        for n in names}
+
+
+def codec_libraries(gstpu_torch) -> dict:
+    """14. The libraries phase 14 needs beside the card: the C++ G.711
+    library (a gate: it must build and load), PIL and the codec shim
+    (what they stop is named, not run)."""
+    import ctypes
+    import importlib.util
+    from gstpu_torch import native, native_codec
+    lib = native.load()
+    if not isinstance(lib, ctypes.CDLL):
+        raise AssertionError("the C++ G.711 library did not build or load")
+    have = {"PIL": importlib.util.find_spec("PIL") is not None,
+            "libavcodec": native_codec.load() is not None}
+    log(f"[codecs] G.711 through the C++ library {Path(lib._name).name}; "
+        f"PIL {'present' if have['PIL'] else 'MISSING'}; the codec shim "
+        + ("builds" if have["libavcodec"]
+           else "does not build (no libavcodec)"))
+    return {"g711_library": Path(lib._name).name, **have}
+
+
+def codecs_video_phase(gstpu_torch, smi, tmp: Path, kernels,
+                       have_pil: bool) -> dict:
+    """14a. BASELINE config 4's 1080p RGBA through 13b's grade on the card,
+    then `colordetect ! tee` into `videoconvert ! I420 ! roundedcorners`,
+    `viuersink` and (with PIL) `rspngenc ! filesink`: each kernel once a
+    frame, every output byte and colordetect message the CPU's; then
+    `videocompare` fed the card's graded frames and the CPU's posts
+    distance 0 for each. fps and each new element's host ms a frame."""
+    cube = tmp / "codecs.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+
+    def launch(where: str, n: int) -> str:
+        d = tmp / where
+        d.mkdir(exist_ok=True)
+        s = (f"videotestsrc num-buffers={n} pattern=snow ! video/x-raw, "
+             f"format=RGBA, width={EDGE_W}, height={EDGE_H}, framerate=30/1 "
+             f"! hsvfilter name=hsv {GRADE_HSV} ! colorlut name=lut "
+             f"location={cube} ! colordetect name=cd ! tee name=t ! "
+             f"videoconvert name=conv ! video/x-raw, format=I420 ! "
+             f"roundedcorners name=rc border-radius-px={CODECS_RADIUS} ! "
+             f"appsink name=a420 ! t. ! viuersink name=viuer "
+             f"width={VIUER_WIDTH} file={d / 'viuer.txt'} ! t. ! "
+             f"appsink name=rgba")
+        if have_pil:
+            s += (f" ! t. ! rspngenc name=png ! filesink name=pngfile "
+                  f"location={d / 'frames.png'}")
+        return s
+
+    sinks = ("a420", "rgba")
+    run_string(gstpu_torch, "cuda", launch("warm", 1), sinks)
+    tracer = push_tracer()
+    for k in kernels:
+        k.launches = 0
+    tracer.install()
+    try:
+        p, dt, card_out, card_msgs = run_string(
+            gstpu_torch, "cuda", launch("card", CODECS_FRAMES), sinks)
+    finally:
+        tracer.uninstall()
+    launches = {k.name: k.launches for k in kernels}
+    names = ["hsv", "lut", "cd", "conv", "rc", "viuer"] \
+        + (["png", "pngfile"] if have_pil else [])
+    per_frame = own_ms(tracer, p, names, CODECS_FRAMES)
+    graded = tracer.payload.get(p.get_by_name("lut").static_pad("src"))
+    _, cpu_dt, cpu_out, cpu_msgs = run_string(
+        gstpu_torch, "cpu", launch("cpu", CODECS_FRAMES), sinks)
+
+    def a420(out):
+        return [(b.to_bytes(), b.pts, b.duration) for b in out["a420"]]
+
+    files = ["viuer.txt"] + (["frames.png"] if have_pil else [])
+    same = {"a420": a420(card_out) == a420(cpu_out),
+            "messages": card_msgs == cpu_msgs}
+    for f in files:
+        same[f] = ((tmp / "card" / f).read_bytes()
+                   == (tmp / "cpu" / f).read_bytes())
+
+    # videocompare: the card's graded frames on the reference pad, the
+    # CPU's on the secondary, secondary frame i before reference frame i
+    from gstpu_torch.core.caps import parse_caps
+    from gstpu_torch.core.element import MessageType
+    gstpu_torch.init(device="cuda")
+    caps = (f"video/x-raw, format=RGBA, width={EDGE_W}, height={EDGE_H}, "
+            f"framerate=30/1")
+    vp = gstpu_torch.parse_launch(
+        f'appsrc name=ref caps="{caps}" ! videocompare name=vc ! fakesink')
+    sec = gstpu_torch.make("appsrc", element_name="sec")
+    sec.set_property("caps", parse_caps(caps))
+    vp.add(sec)
+    sec.static_pad("src").link(vp.get_by_name("vc").static_pad(
+        "sink_secondary"))
+    vp.set_state(gstpu_torch.State.PLAYING)
+    ref = vp.get_by_name("ref")
+    t0 = time.perf_counter()
+    for a, b in zip(card_out["rgba"], cpu_out["rgba"]):
+        sec.push_buffer(b)
+        while vp.iterate():
+            pass
+        ref.push_buffer(a)
+        while vp.iterate():
+            pass
+    ref.end_of_stream()
+    sec.end_of_stream()
+    vp.run(timeout=600)
+    compare_ms = (time.perf_counter() - t0) * 1e3 / CODECS_FRAMES
+    posted = [m.fields for m in vp.bus.drain()
+              if m.type is MessageType.ELEMENT and m.name == "videocompare"]
+    vp.set_state(gstpu_torch.State.NULL)
+    ref_kinds = {payload_kind(b.data) for b in card_out["rgba"]}
+    distances = [(m["distance"], m["pts"], m["secondary_pts"]) for m in posted]
+
+    res = {"frames": CODECS_FRAMES, "fps": CODECS_FRAMES / dt,
+           "cpu_fps": CODECS_FRAMES / cpu_dt, "launches": launches,
+           "host_ms_a_frame": per_frame, "videocompare_ms_a_frame": compare_ms,
+           "graded_payload": graded, "reference_payload": sorted(ref_kinds),
+           "equal_to_cpu": same, "colordetect_messages": len(card_msgs),
+           "videocompare_distances": [d[0] for d in distances]}
+    log(f"[codecs] {CODECS_FRAMES} frames of {EDGE_W}x{EDGE_H} RGBA through "
+        f"`hsvfilter ! colorlut ! colordetect ! tee` into roundedcorners, "
+        f"viuersink{' and rspngenc' if have_pil else ''}: {res['fps']:.3f} "
+        f"fps on the card (tracer on), {res['cpu_fps']:.3f} on the CPU; "
+        f"launches {launches}; the graded frames: {graded}; host ms a frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_frame.items())
+        + f"; equal to the CPU: {same}; {len(card_msgs)} colordetect "
+        f"messages; videocompare (fed {sorted(ref_kinds)} and host frames) "
+        f"{compare_ms:.3f} ms a frame, distances "
+        f"{res['videocompare_distances']}  [{smi}]")
+    if not all(same.values()) or len(card_out["a420"]) != CODECS_FRAMES \
+            or "A420" not in repr(p.get_by_name("a420").caps):
+        raise AssertionError(f"phase 14a's outputs differ from the CPU's: "
+                             f"{same}")
+    if not card_msgs:
+        raise AssertionError("colordetect posted no message")
+    if len(distances) != CODECS_FRAMES or any(
+            d != 0 or pts != sp for d, pts, sp in distances):
+        raise AssertionError(f"videocompare did not post distance 0 for every "
+                             f"frame: {distances}")
+    if graded != "tensor on cuda":
+        raise AssertionError(f"the graded frames lie on {graded}, not the "
+                             f"card")
+    if any(n != CODECS_FRAMES for n in launches.values()):
+        raise AssertionError(f"the kernels launched {launches} times, not "
+                             f"once a frame")
+    return res
+
+
+def feed_blocks(gstpu_torch, x: np.ndarray, rate: int):
+    """An appsrc feeder: `x` (frames, channels) in 100 ms host blocks."""
+    def feed(p) -> None:
+        src = p.get_by_name("src")
+        for i, off in enumerate(range(0, len(x), rate // 10)):
+            src.push_buffer(gstpu_torch.Buffer(
+                x[off:off + rate // 10].copy(), pts=i * 100_000_000,
+                duration=100_000_000))
+        src.end_of_stream()
+    return feed
+
+
+def codecs_audio_phase(gstpu_torch, smi, tmp: Path) -> dict:
+    """14b. The flagship at one stream of 192 kHz F64 stereo (its settings,
+    the echo's output a CUDA tensor) `! audioloudnorm ! rsagingradio !
+    audioconvert ! S16LE ! alawenc ! alawdec ! mulawenc ! mulawdec !
+    filesink`, on the card and the CPU: the files equal (else the
+    differing codes counted), the F64 samples before audioconvert within
+    EDGE_TOL; then a 1 s telephony leg resampled to 8 kHz mono before
+    alawenc, its file the CPU's. Host ms per second of audio by stage."""
+    caps = (f"audio/x-raw, format=F64LE, rate={RATE_192K}, channels=2, "
+            f"layout=interleaved")
+    stages = ["echo", "norm", "aging", "conv", "ae", "ad", "me", "md", "out"]
+
+    def launch(dst: Path, phone: bool) -> str:
+        to_s16 = (f"audioresample name=res ! audio/x-raw, rate={PHONE_RATE} "
+                  f"! audioconvert name=conv ! audio/x-raw, format=S16LE, "
+                  f"channels=1" if phone else
+                  "audioconvert name=conv ! audio/x-raw, format=S16LE")
+        return (f'appsrc name=src caps="{caps}" ! rsaudioecho name=echo '
+                f'delay=250000000 intensity={AUDIO_INTENSITY} '
+                f'feedback={AUDIO_FEEDBACK} ! audioloudnorm name=norm ! '
+                f'rsagingradio name=aging ! tee name=t ! {to_s16} ! '
+                f'alawenc name=ae ! alawdec name=ad ! mulawenc name=me ! '
+                f'mulawdec name=md ! filesink name=out location={dst} ! t. ! '
+                f'appsink name=f64')
+
+    res = {}
+    for leg, seconds, phone in (("g711", G711_SECONDS, False),
+                                ("telephony", PHONE_SECONDS, True)):
+        x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+        feed = feed_blocks(gstpu_torch, x, RATE_192K)
+        tracer = push_tracer()
+        tracer.install()
+        try:
+            p, dt, card_out, _ = run_string(
+                gstpu_torch, "cuda", launch(tmp / f"{leg}_card.raw", phone),
+                ("f64",), feed)
+        finally:
+            tracer.uninstall()
+        names = stages[:3] + (["res"] if phone else []) + stages[3:]
+        own = own_ms(tracer, p, names, seconds)
+        echo_payload = tracer.payload.get(p.get_by_name("echo")
+                                          .static_pad("src"))
+        aging_in = tracer.payload.get(p.get_by_name("aging")
+                                      .static_pad("sink").peer)
+        _, cpu_dt, cpu_out, _ = run_string(
+            gstpu_torch, "cpu", launch(tmp / f"{leg}_cpu.raw", phone),
+            ("f64",), feed)
+        got, want = ((tmp / f"{leg}_{w}.raw").read_bytes()
+                     for w in ("card", "cpu"))
+        codes = np.frombuffer(got, "<i2"), np.frombuffer(want, "<i2")
+        differ = (int(np.count_nonzero(codes[0] != codes[1]))
+                  if codes[0].shape == codes[1].shape else -1)
+        f64 = [np.concatenate([b.array.view(np.float64).reshape(-1)
+                               for b in out["f64"]])
+               for out in (card_out, cpu_out)]
+        err = float(np.abs(f64[0] - f64[1]).max())
+        rate, ch = (PHONE_RATE, 1) if phone else (RATE_192K, 2)
+        res[leg] = {"seconds_of_audio": seconds, "wall_s": dt,
+                    "cpu_wall_s": cpu_dt, "host_ms_per_s": own,
+                    "whole_string_ms_per_s": dt * 1e3 / seconds,
+                    "file_bytes": len(got), "equal_to_cpu": got == want,
+                    "differing_codes": differ, "f64_max_abs_err": err,
+                    "echo_output": echo_payload, "aging_input": aging_in}
+        log(f"[codecs] {leg}: {seconds} s of 192 kHz stereo through the "
+            f"flagship, rsagingradio and G.711 into a {len(got)} B file of "
+            f"{rate} Hz x {ch} S16 codes "
+            f"({'equal to' if got == want else 'DIFFERS FROM'} the CPU's, "
+            f"{differ} codes differ; F64 before audioconvert max "
+            f"|err| {err:.3e}, gate {EDGE_TOL}); {dt:.3f} s on the card "
+            f"(tracer on), the CPU {cpu_dt:.3f} s; host ms per second of "
+            f"audio: " + ", ".join(f"{k} {v:.2f}" for k, v in own.items())
+            + f", the whole string {dt * 1e3 / seconds:.1f}; the echo's "
+            f"output: {echo_payload}; rsagingradio fed: {aging_in}  [{smi}]")
+        if echo_payload != "tensor on cuda":
+            raise AssertionError(f"the echo's output lies on {echo_payload}, "
+                                 f"not the card")
+        if len(got) != 2 * ch * round(seconds * rate) or not np.isfinite(
+                f64[0]).all() or err > EDGE_TOL:
+            raise AssertionError(f"{leg}: {len(got)} B of codes or the F64 "
+                                 f"samples outside the gate")
+        if got != want:
+            raise AssertionError(f"{leg}: the card's G.711 file differs from "
+                                 f"the CPU's in {differ} codes")
+
+    # the in-place path on a card payload: the echo hands rsagingradio a
+    # CUDA tensor, which it reads through AudioInfo.view and replaces
+    # with a host array
+    x = edge_signal(PHONE_SECONDS, RATE_192K).astype(np.float64) / 32768.0
+    launch = (f'appsrc name=src caps="{caps}" ! rsaudioecho name=echo '
+              f'delay=250000000 intensity={AUDIO_INTENSITY} '
+              f'feedback={AUDIO_FEEDBACK} ! rsagingradio ! appsink name=out')
+    tracer = push_tracer()
+    tracer.install()
+    try:
+        p, _, card_out, _ = run_string(gstpu_torch, "cuda", launch, ("out",),
+                                       feed_blocks(gstpu_torch, x, RATE_192K))
+    finally:
+        tracer.uninstall()
+    fed = tracer.payload.get(p.get_by_name("echo").static_pad("src"))
+    _, _, cpu_out, _ = run_string(gstpu_torch, "cpu", launch, ("out",),
+                                  feed_blocks(gstpu_torch, x, RATE_192K))
+    same = [b.to_bytes() for b in card_out["out"]] == \
+        [b.to_bytes() for b in cpu_out["out"]]
+    res["in_place"] = {"fed": fed, "equal_to_cpu": same}
+    log(f"[codecs] `rsaudioecho ! rsagingradio`: the filter fed {fed}, its "
+        f"output {'equal to' if same else 'DIFFERS FROM'} the CPU's")
+    if not same or fed != "tensor on cuda":
+        raise AssertionError("rsagingradio on the echo's card payload")
+    return res
+
+
+def cdg_packets(rng, n: int) -> bytes:
+    """`n` seeded CD+G packets as tests/test_cdg.py builds them: both
+    colour tables, memory and border presets, normal and XOR tiles,
+    scrolls, and packets that are not CD+G commands."""
+    from gstpu_torch.codecs import cdg
+
+    def pkt(insn: int, data: bytes) -> bytes:
+        return bytes([cdg.CMD_CDG, insn, 0, 0]) + data.ljust(16, b"\0") \
+            + bytes(4)
+
+    def table(insn: int) -> bytes:
+        rgb = rng.integers(0, 16, (8, 3))
+        data = bytearray()
+        for r, g, b in rgb:
+            data += bytes([((r << 2) | (g >> 2)) & 0x3F,
+                           (((g & 3) << 4) | b) & 0x3F])
+        return pkt(insn, bytes(data))
+
+    out = [table(cdg.INSN_COLORS_LOW), table(cdg.INSN_COLORS_HIGH),
+           pkt(cdg.INSN_MEMORY_PRESET, bytes([3, 0]))]
+    while len(out) < n:
+        k = rng.random()
+        if k < 0.6:
+            insn = (cdg.INSN_TILE_XOR if rng.random() < 0.4
+                    else cdg.INSN_TILE_NORMAL)
+            out.append(pkt(insn, bytes(
+                [*rng.integers(0, 16, 2), rng.integers(0, 18),
+                 rng.integers(0, 50), *rng.integers(0, 64, 12)])))
+        elif k < 0.7:
+            insn = (cdg.INSN_SCROLL_COPY if rng.random() < 0.5
+                    else cdg.INSN_SCROLL_PRESET)
+            out.append(pkt(insn, bytes(
+                [rng.integers(0, 16),
+                 (rng.integers(0, 3) << 4) | rng.integers(0, 6),
+                 (rng.integers(0, 3) << 4) | rng.integers(0, 12)])))
+        elif k < 0.75:
+            out.append(table(cdg.INSN_COLORS_LOW if rng.random() < 0.5
+                             else cdg.INSN_COLORS_HIGH))
+        elif k < 0.8:
+            out.append(pkt(cdg.INSN_MEMORY_PRESET, bytes(
+                [rng.integers(0, 16), rng.integers(0, 2)])))
+        elif k < 0.85:
+            out.append(pkt(cdg.INSN_BORDER_PRESET,
+                           bytes([rng.integers(0, 16)])))
+        else:
+            out.append(bytes(24))
+    return b"".join(out)
+
+
+def codecs_cdg_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """14c. A seeded CD+G file through `filesrc ! cdgparse ! cdgdec ! queue
+    ! videoconvert ! RGBA ! hsvfilter ! colorlut ! appsink` (13b's grade)
+    on the card: each kernel once a decoded frame, every frame the CPU's.
+    The queue: without it `cdgdec`'s caps query (gstpu's, as it stands)
+    refuses raw video downstream."""
+    f = tmp / "karaoke.cdg"
+    f.write_bytes(cdg_packets(np.random.default_rng(SEED), CDG_PACKETS))
+    cube = tmp / "cdg.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    launch = (f"filesrc location={f} ! video/x-cdg ! cdgparse ! cdgdec ! "
+              f"queue ! videoconvert ! video/x-raw, format=RGBA ! hsvfilter "
+              f"{GRADE_HSV} ! colorlut location={cube} ! appsink name=out")
+    for k in kernels:
+        k.launches = 0
+    _, dt, card_out, _ = run_string(gstpu_torch, "cuda", launch, ("out",))
+    launches = {k.name: k.launches for k in kernels}
+    _, cpu_dt, cpu_out, _ = run_string(gstpu_torch, "cpu", launch, ("out",))
+    frames = [(b.to_bytes(), b.pts) for b in card_out["out"]]
+    same = frames == [(b.to_bytes(), b.pts) for b in cpu_out["out"]]
+    kinds = sorted({payload_kind(b.data) for b in card_out["out"]})
+    res = {"packets": CDG_PACKETS, "frames": len(frames), "wall_s": dt,
+           "cpu_wall_s": cpu_dt, "fps": len(frames) / dt,
+           "launches": launches, "equal_to_cpu": same, "output": kinds}
+    log(f"[codecs] CD+G: {CDG_PACKETS} seeded packets into {len(frames)} "
+        f"frames of 300x216 through both kernels in {dt:.3f} s "
+        f"({res['fps']:.2f} fps; the CPU {cpu_dt:.3f} s); launches "
+        f"{launches}; {kinds}; {'equal to' if same else 'DIFFER FROM'} the "
+        f"CPU's  [{smi}]")
+    if not same or len(frames) < CDG_PACKETS // 4:
+        raise AssertionError("the CD+G frames differ from the CPU's")
+    if kinds != ["tensor on cuda"]:
+        raise AssertionError(f"the graded CD+G frames lie on {kinds}")
+    if any(n != len(frames) for n in launches.values()):
+        raise AssertionError(f"the kernels launched {launches} times for "
+                             f"{len(frames)} frames")
+    return res
+
+
+def codecs_shim_phase(gstpu_torch, smi, tmp: Path) -> dict:
+    """14d, where the codec shim links libavcodec: `vp8enc ! vp8dec` and
+    `vp9enc ! vp9dec` behind 13b's grade at 1080p, and `opusenc ! opusdec`
+    behind the echo at 48 kHz, the card's packets and frames byte for
+    byte the CPU's."""
+    cube = tmp / "vpx.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    res = {}
+    for codec in ("vp8", "vp9"):
+        launch = (f"videotestsrc num-buffers={VPX_FRAMES} pattern=snow ! "
+                  f"video/x-raw, format=RGBA, width={EDGE_W}, height={EDGE_H},"
+                  f" framerate=30/1 ! hsvfilter {GRADE_HSV} ! colorlut "
+                  f"location={cube} ! videoconvert ! video/x-raw, format=I420 "
+                  f"! {codec}enc deadline=1 cpu-used=8 ! tee name=t ! "
+                  f"{codec}dec ! appsink name=frames ! t. ! appsink name=pkts")
+        runs = [run_string(gstpu_torch, d, launch, ("pkts", "frames"))
+                for d in ("cuda", "cpu")]
+        outs = [{k: [(b.to_bytes(), b.pts, int(b.flags)) for b in v]
+                 for k, v in r[2].items()} for r in runs]
+        res[codec] = {"frames": VPX_FRAMES, "fps": VPX_FRAMES / runs[0][1],
+                      "equal_to_cpu": outs[0] == outs[1],
+                      "bytes": sum(len(b[0]) for b in outs[0]["pkts"])}
+    x = edge_signal(OPUS_SECONDS, OPUS_RATE).astype(np.float64) / 32768.0
+    launch = (f'appsrc name=src caps="audio/x-raw, format=F64LE, rate='
+              f'{OPUS_RATE}, channels=2, layout=interleaved" ! rsaudioecho '
+              f'delay=250000000 intensity={AUDIO_INTENSITY} feedback='
+              f'{AUDIO_FEEDBACK} ! audioconvert ! audio/x-raw, format=F32LE ! '
+              f'opusenc ! tee name=t ! opusdec ! appsink name=pcm ! t. ! '
+              f'appsink name=pkts')
+    runs = [run_string(gstpu_torch, d, launch, ("pkts", "pcm"),
+                       feed_blocks(gstpu_torch, x, OPUS_RATE))
+            for d in ("cuda", "cpu")]
+    outs = [{k: [(b.to_bytes(), b.pts) for b in v] for k, v in r[2].items()}
+            for r in runs]
+    res["opus"] = {"seconds": OPUS_SECONDS, "equal_to_cpu": outs[0] == outs[1],
+                   "packets": len(outs[0]["pkts"])}
+    log(f"[codecs] the codec shim's strings, card vs CPU: {res}  [{smi}]")
+    if not all(v["equal_to_cpu"] for v in res.values()):
+        raise AssertionError("a VP8, VP9 or Opus stream differs from the "
+                             "CPU's")
+    return res
+
+
+def codecs_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """14. The host codecs and images behind the card's chains. Strings a
+    missing library stops are named, not run."""
+    libs = codec_libraries(gstpu_torch)
+    skipped = []
+    if not libs["PIL"]:
+        skipped.append(("14a `... ! tee ! rspngenc ! filesink`", "PIL"))
+    if not libs["libavcodec"]:
+        skipped += [(f"14d `... ! {s}`", "libavcodec, which the codec "
+                     "shim links")
+                    for s in ("vp8enc ! vp8dec", "vp9enc ! vp9dec",
+                              "opusenc ! opusdec")]
+    res = {"libraries": libs,
+           "video": codecs_video_phase(gstpu_torch, smi, tmp, kernels,
+                                       libs["PIL"]),
+           "audio": codecs_audio_phase(gstpu_torch, smi, tmp),
+           "cdg": codecs_cdg_phase(gstpu_torch, smi, tmp, kernels)}
+    if libs["libavcodec"]:
+        res["shim"] = codecs_shim_phase(gstpu_torch, smi, tmp)
+    for string, lib in skipped:
+        log(f"[codecs] not run: {string}, for want of {lib}")
+    res["not_run"] = [f"{s}: no {lib}" for s, lib in skipped]
+    return res
 
 
 def main() -> int:
@@ -3560,9 +4044,18 @@ def main() -> int:
                                                    Path(tmp))}
     for row in rows:
         row["launches_file"] = edge["video"]["launches"][row["name"]]
+    # 14. the host codecs and images behind the card's chains
+    t14 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        codecs = codecs_phase(gstpu_torch, smi, Path(tmp), kernels)
+    for row in rows:
+        row["launches_host_codecs"] = \
+            codecs["video"]["launches"][row["name"]]
+        row["launches_cdg"] = codecs["cdg"]["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
                                "11": t12 - t11, "12": t13 - t12,
-                               "13": time.monotonic() - t13})
+                               "13": t14 - t13,
+                               "14": time.monotonic() - t14})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -3575,6 +4068,7 @@ def main() -> int:
     log(json.dumps({"analytics": analytics}))
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"host_edge": edge}))
+    log(json.dumps({"host_codecs": codecs}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -17,20 +17,31 @@ _MODULES = [
     "gstpu_torch.elements.video.hsv",
     "gstpu_torch.elements.video.colorlut",
     "gstpu_torch.elements.video.av1",
+    "gstpu_torch.elements.video.vpx",
+    "gstpu_torch.elements.video.videofx",
     "gstpu_torch.elements.video.scale",
     "gstpu_torch.elements.video.convert",
+    "gstpu_torch.elements.video.viuer",
     "gstpu_torch.elements.video.compositor",
+    "gstpu_torch.elements.video.image",
+    "gstpu_torch.elements.video.cdg",
     "gstpu_torch.elements.analytics.analytics",
     "gstpu_torch.elements.audio.audiofx",
+    "gstpu_torch.elements.audio.g711",
     "gstpu_torch.elements.audio.loudnorm",
     "gstpu_torch.elements.audio.rnnoise",
     "gstpu_torch.elements.audio.hrtf",
     "gstpu_torch.elements.audio.convert",
     "gstpu_torch.elements.audio.claxon",
     "gstpu_torch.elements.audio.lewton",
+    "gstpu_torch.elements.audio.agingradio",
+    "gstpu_torch.elements.audio.audioparsers",
+    "gstpu_torch.elements.audio.opus",
     "gstpu_torch.elements.mux.fmp4",
     "gstpu_torch.elements.mux.mpegts",
     "gstpu_torch.elements.mux.flvdemux",
+    # last: _alias reads the registry when it is imported
+    "gstpu_torch.elements.generic.aliases",
 ]
 
 _registered = False

@@ -111,6 +111,17 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.elements.mux.fmp4\n"
             "import gstpu_torch.elements.mux.flvdemux\n"
             "import gstpu_torch.elements.mux.mpegts\n"
+            "import gstpu_torch.native, gstpu_torch.codecs.cdg\n"
+            "import gstpu_torch.elements.audio.g711\n"
+            "import gstpu_torch.elements.audio.agingradio\n"
+            "import gstpu_torch.elements.audio.audioparsers\n"
+            "import gstpu_torch.elements.audio.opus\n"
+            "import gstpu_torch.elements.video.cdg\n"
+            "import gstpu_torch.elements.video.videofx\n"
+            "import gstpu_torch.elements.video.viuer\n"
+            "import gstpu_torch.elements.video.image\n"
+            "import gstpu_torch.elements.video.vpx\n"
+            "import gstpu_torch.elements.generic.aliases\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
@@ -151,7 +162,15 @@ def test_port_has_its_own_registry():
              "audiomixer", "claxondec", "oggdemux", "lewtondec",
              "isomp4mux", "isofmp4mux", "cmafmux", "dashmp4mux",
              "onviffmp4mux", "onvifmp4mux", "rsflvdemux", "mpegtsmux",
-             "hlssink3")
+             "hlssink3",
+             # the host codecs and images, and three aliases
+             "alawenc", "alawdec", "mulawenc", "mulawdec", "rsagingradio",
+             "ac4parse", "s302mparse", "cdgparse", "cdgdec",
+             "roundedcorners", "colordetect", "videocompare", "viuersink",
+             "rspngenc", "imagedecoder", "gifenc", "gifdec", "rswebpdec",
+             "imageoverlay", "vp8enc", "vp9enc", "vp8dec", "vp9dec",
+             "opusenc", "opusdec", "imagersdec", "imagersoverlay",
+             "agingradio")
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
@@ -159,10 +178,41 @@ def test_port_has_its_own_registry():
         assert ref.__module__.startswith("gstpu.")
         assert element_rank(name) == jax_rank(name), name
     assert set(names) <= set(list_factories())
-    assert len(list_factories()) == 51
+    assert len(list_factories()) == 79
     # the ONVIF converters are ported; gstpu's RTP payloaders are not
     assert not {"onvifmetadatapay", "onvifmetadatadepay"} \
         & set(list_factories())
+
+
+def test_a420_templates_match_gstpu():
+    """`videofx` adds A420 to each package's video formats when it is
+    imported, so a template made from the format list before that import
+    lacks it. After init(), in a fresh process, every factory the port
+    registers lists A420 on the same pads as gstpu's, and both size an
+    A420 frame alike."""
+    code = ("import gstpu, gstpu_torch\n"
+            "from gstpu.core import registry as jr, video as jv\n"
+            "from gstpu_torch.core import registry as pr, video as pv\n"
+            "gstpu.init()\n"
+            "gstpu_torch.init(device='cpu')\n"
+            "def a420(reg, name):\n"
+            "    return [(t.name_template, 'A420' in repr(t.caps))\n"
+            "            for t in reg.element_factory(name).PAD_TEMPLATES]\n"
+            "names = pr.list_factories()\n"
+            "bad = [n for n in names if a420(pr, n) != a420(jr, n)]\n"
+            "has = [n for n in names if any(x for _, x in a420(pr, n))]\n"
+            "sizes = {(jv.VideoInfo('A420', w, h).size,\n"
+            "          pv.VideoInfo('A420', w, h).size)\n"
+            "         for w, h in ((32, 32), (33, 17), (1920, 1080))}\n"
+            "print(bad, has, sizes)\n"
+            "assert not bad and 'roundedcorners' in has\n"
+            "assert all(a == b for a, b in sizes), sizes\n"
+            "assert ('A420' in pv.ALL_VIDEO_FORMATS) == \\\n"
+            "    ('A420' in jv.ALL_VIDEO_FORMATS)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_rsaudioecho_with_context_raises():
