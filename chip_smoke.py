@@ -179,14 +179,32 @@ of every kernel library in DIR and needs no card.)
    colorlut`: each kernel once a frame, every frame the CPU's; (d) where
    the codec shim builds, VP8, VP9 and Opus behind the chains, byte for
    byte the CPU's.
+15. runs captions on the card's 1080p grade and the PIL image elements
+   behind it: (a) BASELINE config 4's 1080p RGBA, 16 frames, through
+   13b's grade into `cccombiner`, its caption pad fed by `appsrc !
+   tttocea608`, then `cea608overlay ! appsink`; into `cccombiner` fed
+   `tttocea708 ! cea708mux` CDP, then `cea708overlay`; and into
+   `st2038combiner` fed that CDP through `cctost2038anc`, then
+   `st2038extractor`, its anc pad into `st2038anctocc ! appsink`: every
+   output's bytes, times and metas and the element messages equal the
+   CPU run's, each kernel once a frame, the combiners calling
+   `Buffer.array` on no frame and the overlays once on each frame whose
+   caption metas put a caption on it (those frames go on as host arrays,
+   the others as CUDA tensors), fps and each element's host ms a frame
+   under the pad-push tracer; (b) the graded frames through `rspngenc !
+   imagedecoder`, `gifenc ! gifdec` and `imageoverlay`, and a graded
+   frame written as a lossless WebP through `filesrc ! image/webp !
+   rswebpdec` (named, not run, where PIL lacks WebP), each byte for byte
+   the CPU's.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
-of the analytics path, of the parallel layer, of the host edge and of the
-host codecs, the card's name and power limit, one JSON line of kernels
-and last `{"ok": true, "device": {...}}`. Any failed phase raises, and the script then exits non-zero
-without that last line; so does a machine without CUDA or a directory
-without the gstpu_torch package.
+of the analytics path, of the parallel layer, of the host edge, of the
+host codecs and of the captions, the card's name and power limit, one
+JSON line of kernels and last `{"ok": true, "device": {...}}`. Any failed
+phase raises, and the script then exits non-zero without that last line;
+so does a machine without CUDA or a directory without the gstpu_torch
+package.
 """
 
 from __future__ import annotations
@@ -345,6 +363,15 @@ G711_SECONDS, PHONE_SECONDS, PHONE_RATE = 4.0, 1.0, 8_000
 CDG_PACKETS = 600
 VPX_FRAMES = 4
 OPUS_RATE, OPUS_SECONDS = 48_000, 1.0
+# the captions on the card (phase 15): 13b's grade and frame size with a
+# caption stream combined onto the frames as metas (cccombiner,
+# st2038combiner) and burned in (cea608overlay, cea708overlay), each
+# text at a frame index; the 608 stream is erased by an empty text; then
+# the PIL image elements behind the grade (15b)
+CAPTION_FRAMES = 16
+CAPTIONS_608 = (("GRADED ON CARD", 1), ("", 12))
+CAPTIONS_708 = (("CEA-708 CAPTION", 2), ("SECOND WINDOW", 9))
+IMAGE_FRAMES = 2
 
 
 def log(*args) -> None:
@@ -2887,13 +2914,17 @@ def edge_signal(seconds: float, rate: int) -> np.ndarray:
     return np.round(np.clip(x, -1, 1) * 32767).astype(np.int16)
 
 
-def run_string(gstpu_torch, device: str, launch: str, sinks=(), feed=None):
-    """Run a launch string to its end on `device`, `feed(p)` pushing any
-    appsrc input first: the pipeline (in NULL), its wall seconds, each
-    named appsink's buffers and the element messages of its bus."""
+def run_string(gstpu_torch, device: str, launch: str, sinks=(), feed=None,
+               build=None):
+    """Run a launch string to its end on `device`, `build(p)` adding to
+    the parsed pipeline and `feed(p)` pushing any appsrc input first: the
+    pipeline (in NULL), its wall seconds, each named appsink's buffers and
+    the element messages of its bus."""
     from gstpu_torch.core.element import MessageType
     gstpu_torch.init(device=device)
     p = gstpu_torch.parse_launch(launch)
+    if build is not None:
+        build(p)
     p.set_state(gstpu_torch.State.PLAYING)
     t0 = time.perf_counter()
     if feed is not None:
@@ -3240,11 +3271,11 @@ def edge_container_phase(gstpu_torch, smi, tmp: Path) -> dict:
 
 def own_ms(tracer, p, names: list, per: float) -> dict:
     """Each named element's own host ms on the buffers pushed into it, per
-    `per` unit: the exclusive time of the pushes into its sink pad. Work
+    `per` unit: the exclusive time of the pushes into its sink pads. Work
     an element does at EOS (a drain) falls outside every buffer push."""
-    return {n: tracer.exclusive.get(
-        p.get_by_name(n).static_pad("sink").peer, 0.0) * 1e3 / per
-        for n in names}
+    return {n: sum(tracer.exclusive.get(pad.peer, 0.0)
+                   for pad in p.get_by_name(n).sink_pads()) * 1e3 / per
+            for n in names}
 
 
 def codec_libraries(gstpu_torch) -> dict:
@@ -3671,6 +3702,343 @@ def codecs_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
     return res
 
 
+def on_pad_added(element, name: str, sinkpad) -> None:
+    """Link `element`'s sometimes pad `name` to `sinkpad` the moment the
+    element adds it, before anything is pushed through it (the port's
+    elements emit no pad-added signal)."""
+    add = element.add_pad
+
+    def add_and_link(pad):
+        add(pad)
+        if pad.name == name:
+            pad.link(sinkpad)
+        return pad
+
+    element.add_pad = add_and_link
+
+
+class ArrayCalls:
+    """Counts the port's `Buffer.array` calls by the element whose method
+    made the call and the buffer's pts while the `with` block runs, and
+    apart those on a tensor payload (a download where it lies on a
+    card)."""
+
+    def __enter__(self):
+        from gstpu_torch.core.buffer import Buffer
+        from gstpu_torch.core.element import Element
+        self.counts: dict = {}
+        self.tensor_calls: dict = {}
+        self._prop = Buffer.__dict__["array"]
+        getter = self._prop.fget
+
+        def array(buf):
+            f = sys._getframe(1)
+            while f is not None and not isinstance(f.f_locals.get("self"),
+                                                   Element):
+                f = f.f_back
+            el = f.f_locals["self"].name if f is not None else None
+            self.counts[el, buf.pts] = self.counts.get((el, buf.pts), 0) + 1
+            if isinstance(buf.data, torch.Tensor):
+                self.tensor_calls[el] = self.tensor_calls.get(el, 0) + 1
+            return getter(buf)
+
+        Buffer.array = property(array)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from gstpu_torch.core.buffer import Buffer
+        Buffer.array = self._prop
+
+    def by_element(self) -> dict:
+        out: dict = {}
+        for (el, _), n in self.counts.items():
+            out[el] = out.get(el, 0) + n
+        return out
+
+    def of(self, element: str, pts) -> int:
+        return self.counts.get((element, pts), 0)
+
+
+def caption_string(gstpu_torch, kind: str, cube: Path, n: int, texts):
+    """One of 15a's strings at BASELINE config 4's 1080p RGBA through 13b's
+    grade, for `run_string`: the video string into the combiner `comb`;
+    `build`, which adds the caption branch from `appsrc name=src` and
+    links its last element into `comb` (and, for ST 2038, the
+    extractor's anc pad into `st2038anctocc`); and `feed`, which pushes
+    the texts at their frames' pts, then EOS."""
+    video = (f"videotestsrc num-buffers={n} pattern=snow ! video/x-raw, "
+             f"format=RGBA, width={EDGE_W}, height={EDGE_H}, framerate=30/1 "
+             f"! hsvfilter name=hsv {GRADE_HSV} ! colorlut name=lut "
+             f"location={cube}")
+    text = 'appsrc name=src caps="text/x-raw, format=utf8"'
+    cdp = (f'{text} ! tttocea708 name=tt ! cea708mux name=mux '
+           f'framerate-code=5 ! capsfilter name=cdp caps="closedcaption/'
+           f'x-cea-708, format=cdp"')
+    branch, last = {"608": (f"{text} ! tttocea608 name=tt", "tt"),
+                    "708": (cdp, "cdp"),
+                    "st2038": (f"{cdp} ! cctost2038anc name=anc", "anc")}[kind]
+    tail = {"608": "cea608overlay name=ov ! appsink name=out",
+            "708": "cea708overlay name=ov ! appsink name=out",
+            "st2038": "st2038extractor name=ex ! appsink name=out"}[kind]
+    combiner = "st2038combiner" if kind == "st2038" else "cccombiner"
+    dur = 10 ** 9 // 30
+
+    def build(p) -> None:
+        gstpu_torch.parse_launch(branch, pipeline=p)
+        p.get_by_name(last).link(p.get_by_name("comb"))
+        if kind == "st2038":
+            gstpu_torch.parse_launch("st2038anctocc name=a2c ! appsink "
+                                     "name=cc", pipeline=p)
+            on_pad_added(p.get_by_name("ex"), "anc",
+                         p.get_by_name("a2c").static_pad("sink"))
+
+    def feed(p) -> None:
+        src = p.get_by_name("src")
+        for t, frame in texts:
+            src.push_buffer(gstpu_torch.Buffer(t.encode(), pts=frame * dur,
+                                               duration=dur))
+        src.end_of_stream()
+
+    return f"{video} ! {combiner} name=comb ! {tail}", build, feed
+
+
+def buffer_record(b) -> tuple:
+    """A buffer's bytes, times and metas, the metas as plain values."""
+    return (b.to_bytes(), b.pts, b.duration,
+            [(type(m).__name__, dict(vars(m))) for m in b.metas])
+
+
+def strip_frames(kind: str, frames) -> list:
+    """Which output frames carry a burned-in caption, read from their
+    caption metas alone: a 608 strip from the last text its pairs decode
+    to until an empty one erases it, a 708 window while one is visible."""
+    from gstpu_torch.codecs.cea608 import Cea608Decoder
+    from gstpu_torch.codecs.cea708 import parse_cdp
+    from gstpu_torch.codecs.dtvcc import DtvccDecoder
+    from gstpu_torch.core.video import VideoCaptionMeta
+    dec, dtvcc, text, out = Cea608Decoder(), DtvccDecoder(), None, []
+    for b in frames:
+        for m in b.metas:
+            if not isinstance(m, VideoCaptionMeta):
+                continue
+            if kind == "608":
+                for i in range(0, len(m.data) - 1, 2):
+                    t = dec.push_pair(m.data[i:i + 2])
+                    text = t if t is not None else text
+            else:
+                dtvcc.feed_cc_data(parse_cdp(m.data).cc_data)
+        out.append(bool(text) if kind == "608"
+                   else bool(dtvcc.visible_windows(1)))
+    return out
+
+
+def captions_video_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """15a. BASELINE config 4's 1080p RGBA, 16 frames, through 13b's grade
+    on the card into `cccombiner` fed `appsrc ! tttocea608` and
+    `cea608overlay`; into `cccombiner` fed `tttocea708 ! cea708mux` CDP
+    and `cea708overlay`; and into `st2038combiner` fed that CDP through
+    `cctost2038anc`, then `st2038extractor`, its anc pad into
+    `st2038anctocc`. Each string's outputs, metas and messages equal the
+    CPU run's, each kernel launches once a frame, the combiners call
+    `Buffer.array` on no frame and an overlay once on each frame that
+    its metas put a caption on (those frames leave it as host arrays,
+    the others as CUDA tensors). fps, and each element's host ms a frame
+    under the pad-push tracer."""
+    cube = tmp / "captions.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    res = {}
+    for kind, texts in (("608", CAPTIONS_608), ("708", CAPTIONS_708),
+                        ("st2038", CAPTIONS_708)):
+        sinks = ("out", "cc") if kind == "st2038" else ("out",)
+        warm, build, feed = caption_string(gstpu_torch, kind, cube, 1, texts)
+        run_string(gstpu_torch, "cuda", warm, sinks, feed, build)
+        launch, build, feed = caption_string(gstpu_torch, kind, cube,
+                                             CAPTION_FRAMES, texts)
+        tracer = push_tracer()
+        for k in kernels:
+            k.launches = 0
+        tracer.install()
+        try:
+            with ArrayCalls() as calls:
+                p, dt, card, card_msgs = run_string(
+                    gstpu_torch, "cuda", launch, sinks, feed, build)
+        finally:
+            tracer.uninstall()
+        launches = {k.name: k.launches for k in kernels}
+        names = ["hsv", "lut", "comb"] + {
+            "608": ["ov", "tt"], "708": ["ov", "tt", "mux"],
+            "st2038": ["ex", "a2c", "tt", "mux", "anc"]}[kind]
+        per_frame = own_ms(tracer, p, names, CAPTION_FRAMES)
+        launch, build, feed = caption_string(gstpu_torch, kind, cube,
+                                             CAPTION_FRAMES, texts)
+        _, cpu_dt, cpu, cpu_msgs = run_string(gstpu_torch, "cpu", launch,
+                                              sinks, feed, build)
+        kinds = [payload_kind(b.data) for b in card["out"]]
+        same = {s: [buffer_record(b) for b in card[s]]
+                == [buffer_record(b) for b in cpu[s]] for s in sinks}
+        same["messages"] = card_msgs == cpu_msgs
+        frames = card["out"]
+        r = {"frames": len(frames), "fps": CAPTION_FRAMES / dt,
+             "cpu_fps": CAPTION_FRAMES / cpu_dt, "launches": launches,
+             "host_ms_a_frame": per_frame, "equal_to_cpu": same,
+             "array_calls": calls.by_element(),
+             "array_calls_on_tensors": calls.tensor_calls, "payloads": kinds}
+        if kind == "st2038":
+            from gstpu_torch.codecs.cea708 import (ccdata_split,
+                                                   parse_cdp, parse_dtvcc,
+                                                   service_block_text)
+            got = []
+            for b in card["cc"]:
+                for pkt in ccdata_split(parse_cdp(b.to_bytes()).cc_data)[1]:
+                    got += [service_block_text(d)
+                            for _, d in parse_dtvcc(pkt)[1]]
+            r["anc_packets"] = len(card["cc"])
+            r["captions_back"] = got
+            bad = (got != [t for t, _ in texts] or r["anc_packets"] == 0
+                   or kinds != ["tensor on cuda"] * CAPTION_FRAMES)
+        else:
+            strips = strip_frames(kind, frames)
+            r["strip_frames"] = [i for i, s in enumerate(strips) if s]
+            r["overlay_calls"] = [calls.of("ov", b.pts) for b in frames]
+            bad = (r["overlay_calls"] != [int(s) for s in strips]
+                   or not any(strips) or all(strips)
+                   or kinds != ["ndarray" if s else "tensor on cuda"
+                                for s in strips])
+        res[kind] = r
+        log(f"[captions] {kind}: {len(frames)} frames of {EDGE_W}x{EDGE_H} "
+            f"RGBA, {r['fps']:.3f} fps on the card (tracer on), "
+            f"{r['cpu_fps']:.3f} on the CPU; launches {launches}; "
+            f"Buffer.array calls {r['array_calls']} (on tensors "
+            f"{r['array_calls_on_tensors']})"
+            + (f", the overlay's by frame {r['overlay_calls']} (caption on "
+               f"frames {r['strip_frames']})" if "strip_frames" in r else
+               f"; {r['anc_packets']} ANC packets out of the extractor, "
+               f"captions back {r['captions_back']}")
+            + f"; host ms a frame: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in per_frame.items())
+            + f"; equal to the CPU: {same}  [{smi}]")
+        if not all(same.values()) or len(frames) != CAPTION_FRAMES:
+            raise AssertionError(f"phase 15a's {kind} string differs from "
+                                 f"the CPU's: {same}")
+        if any(n != CAPTION_FRAMES for n in launches.values()):
+            raise AssertionError(f"the kernels launched {launches} times, "
+                                 f"not once a frame")
+        if r["array_calls"].get("comb", 0) != 0:
+            raise AssertionError(f"the {kind} combiner read the payload: "
+                                 f"{r['array_calls']}")
+        if bad:
+            raise AssertionError(f"phase 15a's {kind} string: {r}")
+    return res
+
+
+def images_phase(gstpu_torch, smi, tmp: Path, kernels,
+                 have_webp: bool) -> dict:
+    """15b. The graded 1080p frames through the PIL image elements on the
+    card and on the CPU, every output byte equal: `rspngenc !
+    imagedecoder`, `gifenc ! gifdec`, `imageoverlay` of a seeded RGBA PNG
+    over the card's frames, and (where PIL writes WebP) a graded frame of
+    the card's written as a lossless WebP and read back through `filesrc
+    ! image/webp ! rswebpdec`, equal to that frame. Each kernel launches
+    once a frame."""
+    from PIL import Image
+    cube = tmp / "images.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    rng = np.random.default_rng(SEED + 15)
+    overlay = tmp / "overlay.png"
+    Image.fromarray(rng.integers(0, 256, (240, 480, 4), np.uint8),
+                    "RGBA").save(overlay)
+    grade = (f"videotestsrc num-buffers={IMAGE_FRAMES} pattern=snow ! "
+             f"video/x-raw, format=RGBA, width={EDGE_W}, height={EDGE_H}, "
+             f"framerate=30/1 ! hsvfilter {GRADE_HSV} ! colorlut "
+             f"location={cube}")
+    strings = {
+        "rspngenc ! imagedecoder": (f"{grade} ! rspngenc name=enc ! "
+                                    f"imagedecoder name=dec ! appsink "
+                                    f"name=out", ["enc", "dec"]),
+        "gifenc ! gifdec": (f"{grade} ! gifenc name=enc ! gifdec name=dec ! "
+                            f"appsink name=out", ["enc", "dec"]),
+        "imageoverlay": (f"{grade} ! imageoverlay name=ov location={overlay}"
+                         f" offset-x=1700 offset-y=900 ! appsink name=out",
+                         ["ov"]),
+    }
+    res, launches = {}, {k.name: 0 for k in kernels}
+    for name, (launch, elements) in strings.items():
+        tracer = push_tracer()
+        for k in kernels:
+            k.launches = 0
+        tracer.install()
+        try:
+            p, dt, card, _ = run_string(gstpu_torch, "cuda", launch, ("out",))
+        finally:
+            tracer.uninstall()
+        n = {k.name: k.launches for k in kernels}
+        _, cpu_dt, cpu, _ = run_string(gstpu_torch, "cpu", launch, ("out",))
+        same = ([buffer_record(b) for b in card["out"]]
+                == [buffer_record(b) for b in cpu["out"]])
+        res[name] = {"frames": len(card["out"]), "wall_s": dt,
+                     "cpu_wall_s": cpu_dt, "launches": n,
+                     "host_ms_a_frame": own_ms(tracer, p, elements,
+                                               IMAGE_FRAMES),
+                     "equal_to_cpu": same}
+        log(f"[images] {name}: {IMAGE_FRAMES} graded {EDGE_W}x{EDGE_H} "
+            f"frames in {dt:.3f} s on the card, {cpu_dt:.3f} s on the CPU; "
+            f"launches {n}; host ms a frame "
+            f"{res[name]['host_ms_a_frame']}; "
+            f"{'equal to' if same else 'DIFFER FROM'} the CPU's  [{smi}]")
+        if not same or not card["out"]:
+            raise AssertionError(f"15b `{name}` differs from the CPU's")
+        if any(v != IMAGE_FRAMES for v in n.values()):
+            raise AssertionError(f"the kernels launched {n} times for "
+                                 f"{IMAGE_FRAMES} frames")
+        for k, v in n.items():
+            launches[k] += v
+    name = "filesrc ! image/webp ! rswebpdec"
+    if have_webp:
+        for k in kernels:
+            k.launches = 0
+        _, _, graded, _ = run_string(gstpu_torch, "cuda", grade.replace(
+            f"num-buffers={IMAGE_FRAMES}", "num-buffers=1")
+            + " ! appsink name=out", ("out",))
+        for k in kernels:
+            launches[k.name] += k.launches
+        frame = graded["out"][0].array.reshape(EDGE_H, EDGE_W, 4)
+        webp = tmp / "graded.webp"
+        Image.fromarray(frame, "RGBA").save(webp, format="WEBP",
+                                            lossless=True, exact=True)
+        launch = (f"filesrc location={webp} ! image/webp ! rswebpdec ! "
+                  f"appsink name=out")
+        outs = [run_string(gstpu_torch, d, launch, ("out",))
+                for d in ("cuda", "cpu")]
+        recs = [[buffer_record(b) for b in o[2]["out"]] for o in outs]
+        back = bool(recs[0]) and recs[0][0][0] == frame.tobytes()
+        same = recs[0] == recs[1]
+        res[name] = {"frames": len(recs[0]), "wall_s": outs[0][1],
+                     "webp_bytes": webp.stat().st_size,
+                     "equal_to_cpu": same, "equal_to_graded_frame": back}
+        log(f"[images] {name}: a graded frame of the card's as a "
+            f"{res[name]['webp_bytes']} B lossless WebP, decoded in "
+            f"{outs[0][1]:.3f} s: {'equal to' if back else 'DIFFERS FROM'} "
+            f"the frame, {'equal to' if same else 'DIFFERS FROM'} the CPU's"
+            f"  [{smi}]")
+        if not back or not same:
+            raise AssertionError("15b's WebP frame differs")
+    else:
+        log(f"[images] not run: {name}, for want of PIL's WebP support")
+        res["not_run"] = [f"{name}: PIL without WebP"]
+    res["launches"] = launches
+    return res
+
+
+def captions_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """15. Captions on the card's 1080p grade (the overlays draw with PIL),
+    and the PIL image elements behind it. The WebP string, where PIL
+    lacks WebP, is named and not run."""
+    from PIL import features
+    return {"video": captions_video_phase(gstpu_torch, smi, tmp, kernels),
+            "images": images_phase(gstpu_torch, smi, tmp, kernels,
+                                   bool(features.check("webp")))}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -4052,10 +4420,18 @@ def main() -> int:
         row["launches_host_codecs"] = \
             codecs["video"]["launches"][row["name"]]
         row["launches_cdg"] = codecs["cdg"]["launches"][row["name"]]
+    # 15. captions on the card's 1080p grade, and the PIL image elements
+    t15 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        captions = captions_phase(gstpu_torch, smi, Path(tmp), kernels)
+    for row in rows:
+        row["launches_captions"] = sum(
+            r["launches"][row["name"]] for r in captions["video"].values())
+        row["launches_images"] = captions["images"]["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
                                "11": t12 - t11, "12": t13 - t12,
-                               "13": t14 - t13,
-                               "14": time.monotonic() - t14})
+                               "13": t14 - t13, "14": t15 - t14,
+                               "15": time.monotonic() - t15})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -4069,6 +4445,7 @@ def main() -> int:
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"host_edge": edge}))
     log(json.dumps({"host_codecs": codecs}))
+    log(json.dumps({"captions": captions}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -24,7 +24,17 @@ _MODULES = [
     "gstpu_torch.elements.video.viuer",
     "gstpu_torch.elements.video.compositor",
     "gstpu_torch.elements.video.image",
+    "gstpu_torch.elements.video.closedcaption",
+    "gstpu_torch.elements.video.scc",
+    "gstpu_torch.elements.video.mcc",
+    "gstpu_torch.elements.video.cea708",
+    "gstpu_torch.elements.video.st2038",
+    "gstpu_torch.elements.video.ttjson",
+    "gstpu_torch.elements.video.st2038demux",
+    "gstpu_torch.elements.video.ccoverlay",
+    "gstpu_torch.elements.video.cccombiner",
     "gstpu_torch.elements.video.cdg",
+    "gstpu_torch.elements.text.textelements",
     "gstpu_torch.elements.analytics.analytics",
     "gstpu_torch.elements.audio.audiofx",
     "gstpu_torch.elements.audio.g711",

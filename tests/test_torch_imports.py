@@ -122,6 +122,18 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.elements.video.image\n"
             "import gstpu_torch.elements.video.vpx\n"
             "import gstpu_torch.elements.generic.aliases\n"
+            "import gstpu_torch.codecs.cea608, gstpu_torch.codecs.cea708\n"
+            "import gstpu_torch.codecs.dtvcc, gstpu_torch.codecs.st2038\n"
+            "import gstpu_torch.elements.video.closedcaption\n"
+            "import gstpu_torch.elements.video.scc\n"
+            "import gstpu_torch.elements.video.mcc\n"
+            "import gstpu_torch.elements.video.cea708\n"
+            "import gstpu_torch.elements.video.st2038\n"
+            "import gstpu_torch.elements.video.ttjson\n"
+            "import gstpu_torch.elements.video.st2038demux\n"
+            "import gstpu_torch.elements.video.ccoverlay\n"
+            "import gstpu_torch.elements.video.cccombiner\n"
+            "import gstpu_torch.elements.text.textelements\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
@@ -170,7 +182,17 @@ def test_port_has_its_own_registry():
              "rspngenc", "imagedecoder", "gifenc", "gifdec", "rswebpdec",
              "imageoverlay", "vp8enc", "vp9enc", "vp8dec", "vp9dec",
              "opusenc", "opusdec", "imagersdec", "imagersoverlay",
-             "agingradio")
+             "agingradio",
+             # closed captions, SMPTE ST 2038 and the text elements
+             "tttocea608", "cea608tott", "ccdetect", "cea608mux",
+             "sccparse", "sccenc", "mccparse", "mccenc", "cea608tocea708",
+             "cdpserviceinject", "cea708mux", "tttocea708",
+             "cctost2038anc", "st2038anctocc", "st2038combiner",
+             "st2038extractor", "cea608tojson", "jsontovtt", "tttojson",
+             "st2038ancdemux", "st2038ancmux", "cea608overlay",
+             "cea708overlay", "cccombiner", "ccextractor", "regex",
+             "textwrap", "jsongstenc", "jsongstparse", "textaccumulate",
+             "textahead")
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
@@ -178,7 +200,7 @@ def test_port_has_its_own_registry():
         assert ref.__module__.startswith("gstpu.")
         assert element_rank(name) == jax_rank(name), name
     assert set(names) <= set(list_factories())
-    assert len(list_factories()) == 79
+    assert len(list_factories()) == 110
     # the ONVIF converters are ported; gstpu's RTP payloaders are not
     assert not {"onvifmetadatapay", "onvifmetadatadepay"} \
         & set(list_factories())
