@@ -196,11 +196,39 @@ of every kernel library in DIR and needs no card.)
    frame written as a lossless WebP through `filesrc ! image/webp !
    rswebpdec` (named, not run, where PIL lacks WebP), each byte for byte
    the CPU's.
+16. runs the plumbing, supervisors and host consumers of Queue D item 3
+   around the card's grade: (a) bench_video.py's 4K RGBA, 16 frames,
+   through the grade into `intersink`, read by a second pipeline's
+   `intersrc` on its own thread, into `ts-blocking-adapter ! ts-queue`,
+   and between `originalbuffersave` and `originalbufferrestore` (fed
+   videotestsrc's host frames, and those frames on the card): every frame
+   out of a bridge the direct string's bit for bit on the card, the
+   restored frames the source's where they came in, no `Buffer.array`
+   call by a new element, each kernel once a frame, fps, host ms a frame
+   by element, and the device ms of the save's clone of a 4K frame beside
+   its bytes bound; (b) the 4K grade stepped into `fallbackswitch
+   timeout=1s` (a feeder pad of solid blue host frames on its second pad,
+   2 s without a main frame) and into `togglerecord` (a GOP of 4, record
+   toggled three times) under a TestClock: outputs (source, pts, flags)
+   and messages equal to the same sequence at 64x48 on the CPU, the main
+   frames leaving as the CUDA tensors that came in, no read; (c)
+   BASELINE config 4's 1080p, 8 frames, through the grade into
+   `flatecompress`, `brotlicompress quality=5` and `sodiumencrypter`
+   (fixed keys and nonce), each teed into its decoder: the encoded
+   stream byte for byte what the encoder writes fed the same frames as
+   host arrays through appsrc, the round trip exact, one `Buffer.array`
+   call a frame by the encoder and none by the decoder (a string whose
+   library is missing is named, not run); (d) `python -m
+   gstpu_torch.tools.launch` on 4 frames of the 4K chain with no
+   --device exits 0, and non-zero with core/device.py's error when
+   CUDA_VISIBLE_DEVICES hides the card; `python -m
+   gstpu_torch.tools.inspect intersrc` exits 0.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
 of the analytics path, of the parallel layer, of the host edge, of the
-host codecs and of the captions, the card's name and power limit, one
+host codecs, of the captions and of the plumbing, the card's name and
+power limit, one
 JSON line of kernels and last `{"ok": true, "device": {...}}`. Any failed
 phase raises, and the script then exits non-zero without that last line;
 so does a machine without CUDA or a directory without the gstpu_torch
@@ -209,6 +237,7 @@ package.
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import json
 import os
@@ -218,6 +247,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -372,6 +402,22 @@ CAPTION_FRAMES = 16
 CAPTIONS_608 = (("GRADED ON CARD", 1), ("", 12))
 CAPTIONS_708 = (("CEA-708 CAPTION", 2), ("SECOND WINDOW", 9))
 IMAGE_FRAMES = 2
+# the plumbing, supervisors and host consumers behind the card (phase 16):
+# bench_video.py's 4K RGBA with the seeded 33^3 LUT and 13b's grade through
+# the bridges (16a) and the supervisors (16b, stepped under a TestClock and
+# held against the same sequence at 64x48 on the CPU), BASELINE config 4's
+# 1080p into the compressors and sodium (16c), the launch tool on the 4K
+# chain (16d). fallbackswitch (timeout=1s) loses its main pad for 2 s after
+# 6 frames, while 4 backup frames go out; togglerecord sees a GOP of 4 and
+# its record flag set before the frames named. Brotli at quality 5: its
+# default 11 is far slower on incompressible frames.
+PLUMBING_FRAMES, PLUMBING_HOST_FRAMES, PLUMBING_LAUNCH_FRAMES = 16, 8, 4
+PLUMBING_CHECK_W, PLUMBING_CHECK_H = 64, 48
+SWITCH_TIMEOUT, SWITCH_OUTAGE_NS = 10 ** 9, 2 * 10 ** 9
+SWITCH_HEALTHY, SWITCH_BACKUP = 6, 4
+RECORD_GOP, RECORD_TOGGLES = 4, {2: True, 9: False, 11: True}
+BROTLI_QUALITY = 5
+SODIUM_NONCE = bytes(range(24))
 
 
 def log(*args) -> None:
@@ -2978,7 +3024,7 @@ def push_tracer():
     inside its buffer pushes (inclusive of everything downstream), the
     same less the pushes nested in them (exclusive: the receiving
     element's own work on the buffer), the pushes, and where its first
-    payload lay. One streaming thread."""
+    payload lay. Nested pushes are kept a stack per thread."""
     from gstpu_torch.utils.tracing import Tracer
 
     class PushTimes(Tracer):
@@ -2989,20 +3035,21 @@ def push_tracer():
             self.t0: dict = {}
             self.seconds: dict = {}
             self.exclusive: dict = {}
-            self.nested: list = []
+            self.nested: dict = {}
             self.pushes: dict = {}
             self.payload: dict = {}
 
         def pre(self, pad, buf) -> None:
             self.t0[pad] = time.perf_counter()
-            self.nested.append(0.0)
+            self.nested.setdefault(threading.get_ident(), []).append(0.0)
             self.payload.setdefault(pad, payload_kind(buf.data))
 
         def post(self, pad, buf) -> None:
             dt = time.perf_counter() - self.t0.pop(pad)
-            inner = self.nested.pop()
-            if self.nested:
-                self.nested[-1] += dt
+            nested = self.nested[threading.get_ident()]
+            inner = nested.pop()
+            if nested:
+                nested[-1] += dt
             self.seconds[pad] = self.seconds.get(pad, 0.0) + dt
             self.exclusive[pad] = self.exclusive.get(pad, 0.0) + dt - inner
             self.pushes[pad] = self.pushes.get(pad, 0) + 1
@@ -4039,6 +4086,557 @@ def captions_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
                                    bool(features.check("webp")))}
 
 
+def grade_strings(w: int, h: int, n: int, cube: Path) -> tuple:
+    """13b's grade at w x h on n snow frames: the source, and the two
+    kernels' elements."""
+    return (f"videotestsrc num-buffers={n} pattern=snow ! video/x-raw, "
+            f"format=RGBA, width={w}, height={h}, framerate=30/1",
+            f"hsvfilter name=hsv {GRADE_HSV} ! colorlut name=lut "
+            f"location={cube}")
+
+
+def plumbing_strings(w: int, h: int, n: int, cube: Path) -> dict:
+    """16a's strings, each name to (its string, the consumer string of an
+    inter bridge or None, the new elements in them). `direct` and `source`
+    are the references; `appsrc ! originalbuffersave ...` is fed the
+    source's frames on the grade's device."""
+    src, grade = grade_strings(w, h, n, cube)
+    caps = f"video/x-raw, format=RGBA, width={w}, height={h}, framerate=30/1"
+    save = (f"originalbuffersave name=save ! {grade} ! originalbufferrestore "
+            f"name=restore ! appsink name=out")
+    return {
+        "direct": (f"{src} ! {grade} ! appsink name=out", None, []),
+        "intersink ! intersrc": (
+            f"{src} ! {grade} ! intersink name=isink producer-name=grade",
+            "intersrc name=isrc producer-name=grade ! appsink name=out",
+            ["isink", "isrc"]),
+        "ts-blocking-adapter ! ts-queue": (
+            f"{src} ! {grade} ! ts-blocking-adapter name=ba ! ts-queue "
+            f"name=q ! appsink name=out", None, ["ba", "q"]),
+        "source": (f"{src} ! appsink name=out", None, []),
+        "originalbuffersave ! ... ! originalbufferrestore": (
+            f"{src} ! {save}", None, ["save", "restore"]),
+        "appsrc ! originalbuffersave ! ... ! originalbufferrestore": (
+            f'appsrc name=src caps="{caps}" ! {save}', None,
+            ["save", "restore"]),
+    }
+
+
+def run_plumbing(gstpu_torch, device: str, launch: str, consumer=None,
+                 frames=()) -> tuple:
+    """One of 16a's strings to its end on `device`: `frames` pushed into
+    its appsrc, an inter bridge's consumer pipeline on a `run_async`
+    thread while the producer runs on this one. The pipelines (in NULL),
+    the wall seconds and the buffers of the appsink `out`."""
+    gstpu_torch.init(device=device)
+    State = gstpu_torch.State
+    pipes = [gstpu_torch.parse_launch(launch)]
+    if consumer is not None:
+        pipes.append(gstpu_torch.parse_launch(consumer))
+    for p in reversed(pipes):     # the consumer registers first
+        p.set_state(State.PLAYING)
+    t0 = time.perf_counter()
+    thread = pipes[1].run_async() if consumer is not None else None
+    src = pipes[0].get_by_name("src")
+    for b in frames:
+        src.push_buffer(gstpu_torch.Buffer(b.data, pts=b.pts,
+                                           duration=b.duration))
+    if src is not None:
+        src.end_of_stream()
+    pipes[0].run(timeout=600)
+    if thread is not None:
+        thread.join(600)
+        if thread.is_alive():
+            raise AssertionError(f"the consumer of `{launch}` did not end")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = pipes[-1].get_by_name("out").pull_all()
+    for p in pipes:
+        p.set_state(State.NULL)
+    return pipes, dt, out
+
+
+def plumbing_bridge_phase(gstpu_torch, smi, cube: Path, kernels) -> dict:
+    """16a. bench_video.py's 4K RGBA, 16 frames, through the grade on the
+    card into `intersink`, read by a second pipeline's `intersrc` on its
+    own thread; into `ts-blocking-adapter ! ts-queue` (the adapter pushes
+    from its thread); and between `originalbuffersave` and
+    `originalbufferrestore`, fed by videotestsrc's host frames and by
+    those frames on the card. Every frame out of a bridge is the direct
+    string's, bit for bit and on the card; the restored frames are the
+    source's, bit for bit, where they came in; no new element calls
+    `Buffer.array`; each kernel launches once a frame. fps and each
+    element's host ms a frame; the device ms of the save's clone of one
+    4K frame against its bytes bound."""
+    strings = plumbing_strings(W, H, PLUMBING_FRAMES, cube)
+    warm = plumbing_strings(W, H, 1, cube)["direct"][0]
+    run_plumbing(gstpu_torch, "cuda", warm)
+    res, outs, launches = {}, {}, {k.name: 0 for k in kernels}
+    for name, (launch, consumer, names) in strings.items():
+        feed = ()
+        if name.startswith("appsrc"):
+            dev = outs["direct"][0].data.device
+            feed = [gstpu_torch.Buffer(torch.from_numpy(b.data).to(dev),
+                                       pts=b.pts, duration=b.duration)
+                    for b in outs["source"]]
+        tracer = push_tracer()
+        for k in kernels:
+            k.launches = 0
+        tracer.install()
+        try:
+            with ArrayCalls() as calls:
+                pipes, dt, out = run_plumbing(gstpu_torch, "cuda", launch,
+                                              consumer, feed)
+        finally:
+            tracer.uninstall()
+        n = {k.name: k.launches for k in kernels}
+        own = {}
+        for p in pipes:
+            own.update(own_ms(tracer, p, [x for x in names
+                                          if p.get_by_name(x) is not None],
+                              PLUMBING_FRAMES))
+        outs[name] = out
+        reads = calls.by_element()
+        r = {"frames": len(out), "fps": PLUMBING_FRAMES / dt,
+             "launches": n, "host_ms_a_frame": own,
+             "array_calls": {x: reads.get(x, 0) for x in names},
+             "payloads": sorted({payload_kind(b.data) for b in out})}
+        if name in ("direct", "source"):
+            want = None
+        elif name.startswith("appsrc"):
+            want = feed
+            r["the input tensor itself"] = sum(
+                b.data is f.data for b, f in zip(out, feed))
+        elif name.startswith("originalbuffersave"):
+            want = outs["source"]
+        else:
+            want = outs["direct"]
+        if want is not None:
+            r["equal"] = len(out) == len(want) and all(
+                type(b.data) is type(f.data) and b.pts == f.pts
+                and (torch.equal(b.data, f.data)
+                     if isinstance(b.data, torch.Tensor)
+                     else np.array_equal(b.data, f.data))
+                for b, f in zip(out, want))
+        res[name] = r
+        log(f"[plumbing] {name}: {len(out)} frames of {W}x{H} RGBA, "
+            f"{r['fps']:.3f} fps (tracer on); launches {n}; payloads "
+            f"{r['payloads']}; Buffer.array calls {r['array_calls']}; host "
+            f"ms a frame " + ", ".join(f"{k} {v:.4f}" for k, v in own.items())
+            + (f"; bit for bit the {'input' if feed else 'reference'}'s: "
+               f"{r['equal']}" if "equal" in r else "") + f"  [{smi}]")
+        if len(out) != PLUMBING_FRAMES or any(r["array_calls"].values()):
+            raise AssertionError(f"16a `{name}`: {r}")
+        if name != "source" and any(v != PLUMBING_FRAMES
+                                     for v in n.values()):
+            raise AssertionError(f"16a `{name}`: the kernels launched {n} "
+                                 f"times, not once a frame")
+        if "equal" in r and not r["equal"]:
+            raise AssertionError(f"16a `{name}` differs from its reference")
+        want_kind = ("ndarray" if name.startswith("originalbuffersave")
+                     or name == "source" else "tensor on cuda")
+        if r["payloads"] != [want_kind]:
+            raise AssertionError(f"16a `{name}` gave {r['payloads']}")
+        if feed and r["the input tensor itself"]:
+            raise AssertionError("16a: originalbufferrestore handed on the "
+                                 "input tensor, not the saved copy")
+        if name not in ("direct", "source"):
+            for k in kernels:
+                launches[k.name] += n[k.name]
+    frame = outs["direct"][0].data
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=frame.device)
+    clone_bytes = 2 * frame.numel() * frame.element_size()
+    res["save_clone"] = {"ms": time_ms(lambda: frame.clone(), flush),
+                         "bound_ms": clone_bytes / HBM_BYTES_PER_S * 1e3,
+                         "bytes": clone_bytes}
+    log(f"[plumbing] originalbuffersave's clone of one {W}x{H} RGBA frame on "
+        f"the card: {res['save_clone']['ms']:.4f} ms, bound "
+        f"{res['save_clone']['bound_ms']:.4f} ms ({clone_bytes} B read and "
+        f"written)  [{smi}]")
+    res["launches"] = launches
+    return res
+
+
+def supervise_run(gstpu_torch, device: str, w: int, h: int,
+                  cube: Path) -> dict:
+    """16b on `device` at w x h: the grade's frames as the pipeline makes
+    them, one a scheduler round, into `fallbackswitch timeout=1s`, whose
+    second pad a feeder pad serves videotestsrc's solid blue host frames,
+    under a TestClock: 6 healthy frames (the backup's dropped), 2 s with
+    no main frame (4 backup frames go out), then the main pad's 10 more
+    (the backup's dropped); and into `togglerecord`, the frames marked a
+    GOP of 4 as they enter and `record` toggled before frames 2, 9 and 11.
+    Each string's output as (source, input index, pts, flags), the
+    switch's messages, whether each output holds the very payload that
+    came in, the payloads' kinds and the strings' wall seconds."""
+    def mod(name: str):
+        return importlib.import_module(f"{gstpu_torch.__name__}.{name}")
+    el, ev, bufmod = mod("core.element"), mod("core.event"), mod("core.buffer")
+    clk, caps_mod = mod("core.clock"), mod("core.caps")
+    gstpu_torch.init(device=device)
+    State = gstpu_torch.State
+    caps = f"video/x-raw, format=RGBA, width={w}, height={h}, framerate=30/1"
+    src, grade = grade_strings(w, h, PLUMBING_FRAMES, cube)
+    dur = 10 ** 9 // 30
+    bp = gstpu_torch.parse_launch(
+        f"videotestsrc num-buffers={PLUMBING_FRAMES + SWITCH_BACKUP} "
+        f"pattern=blue ! {caps} ! appsink name=out")
+    bp.set_state(State.PLAYING)
+    bp.run(timeout=600)
+    backup = bp.get_by_name("out").pull_all()
+    bp.set_state(State.NULL)
+
+    def probe(pad, seen, mark=None):
+        orig = pad.chain_function
+
+        def chain(pad_, buf):
+            if mark is not None:
+                mark(len(seen), buf)
+            seen.append(buf.data)
+            return orig(pad_, buf)
+        pad.chain_function = chain
+
+    def one_frame(p, seen) -> None:
+        n = len(seen)
+        while len(seen) == n:
+            if not p.iterate():
+                raise AssertionError("16b: the grade stopped early")
+
+    def records(out, sources) -> list:
+        rec = []
+        for b in out:
+            where = next((name, i) for name, seen in sources.items()
+                         for i, d in enumerate(seen) if d is b.data)
+            rec.append((*where, b.pts, int(b.flags)))
+        return rec
+
+    res, t0 = {}, time.perf_counter()
+    clock = clk.TestClock()
+    p = gstpu_torch.parse_launch(f"{src} ! {grade} ! fallbackswitch name=sw "
+                                 f"timeout={SWITCH_TIMEOUT} ! appsink name=out")
+    sw = p.get_by_name("sw")
+    sw.clock = clock
+    main_in, backup_in = [], []
+    probe(sw.pads["sink_0"], main_in)
+    feeder = el.Pad("backup", el.PadDirection.SRC, el.PadTemplate(
+        "src", el.PadDirection.SRC, el.PadPresence.ALWAYS,
+        caps_mod.Caps.any()))
+    feeder.link(sw.request_pad())
+    probe(sw.pads["sink_1"], backup_in)
+    p.set_state(State.PLAYING)
+    feeder.push_event(ev.StreamStartEvent("backup"))
+    feeder.push_event(ev.CapsEvent(caps_mod.parse_caps(caps)))
+    feeder.push_event(ev.SegmentEvent(ev.Segment()))
+    k = 0
+    for phase, frames in (("healthy", SWITCH_HEALTHY), ("outage", 0),
+                          ("recovery", PLUMBING_FRAMES - SWITCH_HEALTHY)):
+        if phase == "outage":
+            clock.advance(SWITCH_OUTAGE_NS)
+            for _ in range(SWITCH_BACKUP):
+                clock.advance(dur)
+                feeder.push(backup[k])
+                k += 1
+            continue
+        for _ in range(frames):
+            clock.advance(dur)
+            one_frame(p, main_in)
+            feeder.push(backup[k])
+            k += 1
+    p.run(timeout=600)             # the main pad's EOS waits for the backup's
+    feeder.push_event(ev.EosEvent())
+    out = p.get_by_name("out").pull_all()
+    msgs = [(m.name, dict(m.fields)) for m in p.bus.drain()
+            if m.type is el.MessageType.ELEMENT]
+    p.set_state(State.NULL)
+    res["fallbackswitch"] = {
+        "records": records(out, {"main": main_in, "backup": backup_in}),
+        "messages": [f.get("pad") for _, f in msgs],
+        "payloads": [payload_kind(b.data) for b in out]}
+
+    p = gstpu_torch.parse_launch(f"{src} ! {grade} ! togglerecord name=tr ! "
+                                 f"appsink name=out")
+    tr = p.get_by_name("tr")
+    tr_in = []
+
+    def gop(i, buf):
+        if i % RECORD_GOP:
+            buf.set_flag(bufmod.BufferFlags.DELTA_UNIT)
+    probe(tr.static_pad("sink"), tr_in, gop)
+    p.set_state(State.PLAYING)
+    for i in range(PLUMBING_FRAMES):
+        if i in RECORD_TOGGLES:
+            tr.set_property("record", RECORD_TOGGLES[i])
+        one_frame(p, tr_in)
+    p.run(timeout=600)
+    out = p.get_by_name("out").pull_all()
+    p.set_state(State.NULL)
+    res["togglerecord"] = {"records": records(out, {"main": tr_in}),
+                           "payloads": [payload_kind(b.data) for b in out]}
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def plumbing_supervise_phase(gstpu_torch, smi, cube: Path, kernels) -> dict:
+    """16b. The supervisors behind the 4K grade on the card under a
+    TestClock: each output's source, pts and flags and the switch's
+    messages equal the same sequence at 64x48 on the CPU; every main frame
+    leaves as the CUDA tensor that came in; neither element calls
+    `Buffer.array`; each kernel launches once a frame of each string."""
+    for k in kernels:
+        k.launches = 0
+    with ArrayCalls() as calls:
+        card = supervise_run(gstpu_torch, "cuda", W, H, cube)
+    n = {k.name: k.launches for k in kernels}
+    cpu = supervise_run(gstpu_torch, "cpu", PLUMBING_CHECK_W,
+                        PLUMBING_CHECK_H, cube)
+    reads = calls.by_element()
+    res = {"launches": n, "wall_s": card["wall_s"],
+           "array_calls": {x: reads.get(x, 0) for x in ("sw", "tr")}}
+    for name in ("fallbackswitch", "togglerecord"):
+        c, ref = card[name], cpu[name]
+        kinds = {(src, kind) for (src, *_), kind in zip(c["records"],
+                                                       c["payloads"])}
+        res[name] = {"outputs": len(c["records"]),
+                     "equal_to_cpu": c["records"] == ref["records"]
+                     and c.get("messages") == ref.get("messages"),
+                     "records": c["records"], "messages": c.get("messages"),
+                     "payloads": sorted(kinds)}
+        log(f"[plumbing] {name}: {len(c['records'])} of the 4K grade's "
+            f"frames out (source, input, pts, flags) {c['records']}; "
+            f"messages {c.get('messages')}; payloads {sorted(kinds)}; "
+            f"equal to the 64x48 CPU sequence: {res[name]['equal_to_cpu']}"
+            f"  [{smi}]")
+        if not res[name]["equal_to_cpu"] or not c["records"]:
+            raise AssertionError(f"16b {name} differs from the CPU's: {c} "
+                                 f"vs {ref}")
+        if any(src == "main" and kind != "tensor on cuda"
+               for src, kind in kinds):
+            raise AssertionError(f"16b {name}: a main frame left as {kinds}")
+    log(f"[plumbing] the supervisors: launches {n}; Buffer.array calls "
+        f"{res['array_calls']}; {card['wall_s']:.3f} s  [{smi}]")
+    if any(v != 2 * PLUMBING_FRAMES for v in n.values()):
+        raise AssertionError(f"16b: the kernels launched {n} times for 2 x "
+                             f"{PLUMBING_FRAMES} frames")
+    if any(res["array_calls"].values()):
+        raise AssertionError(f"16b: a supervisor read the payload: {res}")
+    return res
+
+
+def sodium_keys(gstpu_torch, *who: str) -> list:
+    """Fixed Curve25519 pairs (public, secret) from libsodium, one for each
+    party named in `who` (the receiver and the sender when none is)."""
+    import ctypes
+    import hashlib
+    lib = importlib.import_module(
+        f"{gstpu_torch.__name__}.elements.generic.sodium")._SODIUM
+    lib.crypto_scalarmult_base.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.crypto_scalarmult_base.restype = ctypes.c_int
+    pairs = []
+    for name in who or ("receiver", "sender"):
+        sk = hashlib.sha256(name.encode()).digest()
+        pk = ctypes.create_string_buffer(32)
+        if lib.crypto_scalarmult_base(pk, sk) != 0:
+            raise AssertionError("crypto_scalarmult_base failed")
+        pairs.append((pk.raw, sk))
+    return pairs
+
+
+def host_consumer_strings(w: int, h: int, n: int, cube: Path) -> dict:
+    """16c's strings, each name to (the grade into the encoder, a tee to
+    `mid` and the decoder into `out`; the encoder fed host frames from
+    `appsrc name=src` into `mid`)."""
+    src, grade = grade_strings(w, h, n, cube)
+    caps = f"video/x-raw, format=RGBA, width={w}, height={h}, framerate=30/1"
+    pairs = {"flatecompress ! flatedecompress": (
+                 "flatecompress name=enc", "flatedecompress name=dec"),
+             "brotlicompress ! brotlidecompress": (
+                 f"brotlicompress name=enc quality={BROTLI_QUALITY}",
+                 "brotlidecompress name=dec"),
+             "sodiumencrypter ! sodiumdecrypter": (
+                 "sodiumencrypter name=enc", "sodiumdecrypter name=dec")}
+    return {name: (f"{src} ! {grade} ! {enc} ! tee name=t ! {dec} ! appsink "
+                   f"name=out ! t. ! appsink name=mid",
+                   f'appsrc name=src caps="{caps}" ! {enc} ! appsink name=mid')
+            for name, (enc, dec) in pairs.items()}
+
+
+def keyed(gstpu_torch, p) -> None:
+    """Sets sodium's fixed keys and nonce on `enc` and `dec` where the
+    pipeline has them."""
+    enc, dec = p.get_by_name("enc"), p.get_by_name("dec")
+    if enc.ELEMENT_NAME != "sodiumencrypter":
+        return
+    (rpk, rsk), (spk, ssk) = sodium_keys(gstpu_torch)
+    enc.receiver_key, enc.sender_key = rpk, ssk
+    enc.nonce = SODIUM_NONCE
+    if dec is not None:
+        dec.receiver_key, dec.sender_key = rsk, spk
+
+
+def host_libraries(gstpu_torch) -> dict:
+    """Which of 16c's strings this machine can run: the missing library
+    of each one it cannot."""
+    compress = importlib.import_module(
+        f"{gstpu_torch.__name__}.elements.generic.compress")
+    sodium = importlib.import_module(
+        f"{gstpu_torch.__name__}.elements.generic.sodium")
+    return {"brotlicompress ! brotlidecompress":
+            None if compress._brotli_backend() is not None
+            else "libbrotlienc/libbrotlidec",
+            "sodiumencrypter ! sodiumdecrypter":
+            None if sodium.sodium_available() else "libsodium"}
+
+
+def plumbing_host_phase(gstpu_torch, smi, cube: Path, kernels) -> dict:
+    """16c. BASELINE config 4's 1080p RGBA, 8 frames, through the grade on
+    the card into `flatecompress`, `brotlicompress` and `sodiumencrypter`
+    (fixed keys and nonce), each teed to an appsink and into its decoder:
+    the encoded stream is byte for byte what the encoder writes fed the
+    direct string's frames as host arrays through appsrc, the decoded
+    bytes are those frames, the encoder calls `Buffer.array` once a frame
+    and the decoder never, each kernel launches once a frame. fps and the
+    host ms a frame of the encoder and the decoder. A string whose library
+    the machine lacks is named, not run."""
+    src, grade = grade_strings(EDGE_W, EDGE_H, PLUMBING_HOST_FRAMES, cube)
+    _, _, direct, _ = run_string(gstpu_torch, "cuda",
+                                 f"{src} ! {grade} ! appsink name=out",
+                                 ("out",))
+    frames = [gstpu_torch.Buffer(b.data.cpu().numpy(), pts=b.pts,
+                                 duration=b.duration) for b in direct["out"]]
+    plain = b"".join(b.data.tobytes() for b in frames)
+    missing = host_libraries(gstpu_torch)
+    res, launches = {}, {k.name: 0 for k in kernels}
+    for name, (launch, fed) in host_consumer_strings(
+            EDGE_W, EDGE_H, PLUMBING_HOST_FRAMES, cube).items():
+        if missing.get(name):
+            log(f"[plumbing] not run: 16c `{name}`, for want of "
+                f"{missing[name]}")
+            res.setdefault("not_run", []).append(f"{name}: no "
+                                                 f"{missing[name]}")
+            continue
+        build = lambda p: keyed(gstpu_torch, p)
+        tracer = push_tracer()
+        for k in kernels:
+            k.launches = 0
+        tracer.install()
+        try:
+            with ArrayCalls() as calls:
+                p, dt, card, _ = run_string(gstpu_torch, "cuda", launch,
+                                            ("out", "mid"), build=build)
+        finally:
+            tracer.uninstall()
+        n = {k.name: k.launches for k in kernels}
+
+        def feed(q):
+            s = q.get_by_name("src")
+            for b in frames:
+                s.push_buffer(b)
+            s.end_of_stream()
+        _, _, host, _ = run_string(gstpu_torch, "cuda", fed, ("mid",), feed,
+                                   build)
+        wire = [(b.to_bytes(), b.pts) for b in card["mid"]]
+        r = {"fps": PLUMBING_HOST_FRAMES / dt, "launches": n,
+             "wire_bytes": sum(len(x) for x, _ in wire),
+             "wire_equal_to_host_feed": wire == [(b.to_bytes(), b.pts)
+                                                 for b in host["mid"]],
+             "round_trip": b"".join(b.to_bytes() for b in card["out"])
+             == plain,
+             "host_ms_a_frame": own_ms(tracer, p, ["enc", "dec"],
+                                       PLUMBING_HOST_FRAMES),
+             "array_calls": calls.by_element(),
+             "enc_calls_by_frame": [calls.of("enc", b.pts) for b in frames]}
+        res[name] = r
+        log(f"[plumbing] {name}: {PLUMBING_HOST_FRAMES} graded {EDGE_W}x"
+            f"{EDGE_H} frames, {r['fps']:.3f} fps (tracer on); launches {n}; "
+            f"{r['wire_bytes']} B on the wire of {len(plain)}, "
+            f"{'equal to' if r['wire_equal_to_host_feed'] else 'DIFFERS FROM'}"
+            f" the host-array feed's; round trip "
+            f"{'exact' if r['round_trip'] else 'DIFFERS'}; Buffer.array "
+            f"calls {r['array_calls']}; host ms a frame "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        r["host_ms_a_frame"].items()) + f"  [{smi}]")
+        if not r["wire_equal_to_host_feed"] or not r["round_trip"]:
+            raise AssertionError(f"16c `{name}`: {r}")
+        if r["enc_calls_by_frame"] != [1] * PLUMBING_HOST_FRAMES \
+                or r["array_calls"].get("dec", 0) != 0:
+            raise AssertionError(f"16c `{name}`: reads {r['array_calls']}")
+        if any(v != PLUMBING_HOST_FRAMES for v in n.values()):
+            raise AssertionError(f"16c `{name}`: the kernels launched {n} "
+                                 f"times, not once a frame")
+        for k in kernels:
+            launches[k.name] += n[k.name]
+    res["launches"] = launches
+    return res
+
+
+def launch_tool_phase(smi, cube: Path) -> dict:
+    """16d. `python -m gstpu_torch.tools.launch` on 4 frames of the 4K
+    chain, with no --device: it exits 0 on the card, and non-zero with
+    core/device.py's error where CUDA_VISIBLE_DEVICES hides the card;
+    `python -m gstpu_torch.tools.inspect intersrc` exits 0. The three
+    processes run at once, each to its end."""
+    src, grade = grade_strings(W, H, PLUMBING_LAUNCH_FRAMES, cube)
+    launch = [sys.executable, "-m", "gstpu_torch.tools.launch", "-q",
+              f"{src} ! {grade} ! fakesink"]
+    runs = {"launch on the card": (launch, {}),
+            "launch with no GPU visible": (launch,
+                                           {"CUDA_VISIBLE_DEVICES": ""}),
+            "inspect intersrc": ([sys.executable, "-m",
+                                  "gstpu_torch.tools.inspect", "intersrc"],
+                                 {})}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, **env},
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, (cmd, env) in runs.items()}
+    res, full = {}, {}
+    try:
+        for name, proc in procs.items():
+            full[name] = proc.communicate(timeout=300)
+            out, err = full[name]
+            res[name] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                         "stdout_tail": out[-300:], "stderr_tail": err[-300:]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, r in res.items():
+        log(f"[plumbing] {name}: exit {r['rc']} after {r['s']:.1f} s; "
+            f"stderr {r['stderr_tail'].strip()[-160:]!r}  [{smi}]")
+    hidden = res["launch with no GPU visible"]
+    if res["launch on the card"]["rc"] != 0:
+        raise AssertionError(f"16d: the launch tool failed on the card: "
+                             f"{res['launch on the card']}")
+    if hidden["rc"] == 0 or "CUDA device requested" not in \
+            full["launch with no GPU visible"][1]:
+        raise AssertionError(f"16d: the launch tool with no GPU visible: "
+                             f"{hidden}")
+    inspect = res["inspect intersrc"]
+    if inspect["rc"] != 0 or "Name          intersrc" not in \
+            full["inspect intersrc"][0]:
+        raise AssertionError(f"16d: inspect intersrc: {inspect}")
+    return res
+
+
+def plumbing_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """16. Queue D item 3's elements around the card's grade: the bridges
+    (a), the supervisors (b), the host consumers (c), the launch tool
+    (d). The launches of each kernel in a-c."""
+    cube = tmp / "plumbing.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    res = {"bridges": plumbing_bridge_phase(gstpu_torch, smi, cube, kernels),
+           "supervisors": plumbing_supervise_phase(gstpu_torch, smi, cube,
+                                                   kernels),
+           "host": plumbing_host_phase(gstpu_torch, smi, cube, kernels),
+           "launch_tool": launch_tool_phase(smi, cube)}
+    res["launches"] = {k.name: sum(res[x]["launches"][k.name] for x in
+                                   ("bridges", "supervisors", "host"))
+                       for k in kernels}
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -4428,10 +5026,18 @@ def main() -> int:
         row["launches_captions"] = sum(
             r["launches"][row["name"]] for r in captions["video"].values())
         row["launches_images"] = captions["images"]["launches"][row["name"]]
+    # 16. the plumbing, supervisors, host consumers and launch tool of
+    # Queue D item 3 around the card's grade
+    t16 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        plumbing = plumbing_phase(gstpu_torch, smi, Path(tmp), kernels)
+    for row in rows:
+        row["launches_plumbing"] = plumbing["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
                                "11": t12 - t11, "12": t13 - t12,
                                "13": t14 - t13, "14": t15 - t14,
-                               "15": time.monotonic() - t15})
+                               "15": t16 - t15,
+                               "16": time.monotonic() - t16})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -4446,6 +5052,7 @@ def main() -> int:
     log(json.dumps({"host_edge": edge}))
     log(json.dumps({"host_codecs": codecs}))
     log(json.dumps({"captions": captions}))
+    log(json.dumps({"plumbing": plumbing}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ _MODULES = [
     "gstpu_torch.elements.generic.app",
     "gstpu_torch.elements.generic.testsrc",
     "gstpu_torch.elements.generic.file",
+    "gstpu_torch.elements.generic.compress",
+    "gstpu_torch.elements.generic.plumbing",
+    "gstpu_torch.elements.generic.sodium",
+    "gstpu_torch.elements.generic.blocking_adapter",
     "gstpu_torch.elements.video.hsv",
     "gstpu_torch.elements.video.colorlut",
     "gstpu_torch.elements.video.av1",
@@ -33,7 +37,12 @@ _MODULES = [
     "gstpu_torch.elements.video.st2038demux",
     "gstpu_torch.elements.video.ccoverlay",
     "gstpu_torch.elements.video.cccombiner",
+    "gstpu_torch.elements.video.transcriberbin",
     "gstpu_torch.elements.video.cdg",
+    "gstpu_torch.elements.utils_.supervise",
+    "gstpu_torch.elements.utils_.fallbacksrc",
+    "gstpu_torch.elements.utils_.uriplaylistbin",
+    "gstpu_torch.elements.utils_.debugsei",
     "gstpu_torch.elements.text.textelements",
     "gstpu_torch.elements.analytics.analytics",
     "gstpu_torch.elements.audio.audiofx",

@@ -6,6 +6,9 @@ CUDA kernel on a CUDA tensor (the plain version on a CPU tensor), a 1D
 LUT runs as tensor code, and the result stays a tensor. With `context`
 set, the frames of every member stream with the same LUT run as one
 batch: one launch over (B*H, W, C), as gstpu's batched spec does.
+The graded buffer carries the input's metas, batched or not, as a
+reference base transform copies them (gstpu's colorlut drops them, so
+an `originalbuffersave` before it is lost there).
 """
 
 from __future__ import annotations
@@ -160,7 +163,8 @@ class ColorLut(VideoFilter):
             n = info.height * info.width * len(info.format)
             data = buf.data if _is_device(buf.data) \
                 else np.asarray(info.view(buf)).reshape(-1)
-            self._ctx.submit(self, data, buf.pts, n * self.fps)
+            self._ctx.submit(self, data, buf.pts, n * self.fps,
+                             metas=buf.metas)
             return []                 # outputs flow from the batch
         frame = info.tensor(buf, self._device)
         swap = info.format == _SWAPPED
@@ -177,4 +181,5 @@ class ColorLut(VideoFilter):
                                lut.domain_offset, max_val=max_val)
         if swap:
             out = _byteswap16(out)
-        return Buffer(out, pts=buf.pts, duration=buf.duration)
+        return Buffer(out, pts=buf.pts, duration=buf.duration,
+                      metas=[m.copy() for m in buf.metas])

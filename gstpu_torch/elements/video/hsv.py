@@ -152,7 +152,8 @@ class HsvFilter(VideoFilter):
             n = info.height * info.width * len(info.format)
             data = buf.data if _is_device(buf.data) \
                 else info.view(buf).reshape(-1)
-            self._ctx.submit(self, data, buf.pts, n * self.fps)
+            self._ctx.submit(self, data, buf.pts, n * self.fps,
+                             metas=buf.metas)
             return []                 # outputs flow from the batch
         frame = info.tensor(buf, self._device)
         # a frame uploaded just now is ours to overwrite; a tensor that

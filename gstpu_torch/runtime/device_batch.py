@@ -56,11 +56,16 @@ are one int for the whole batch: chains fire in phase lockstep, so they
 agree, and a fire where they do not raises. Per-stream outputs equal
 the unbatched B=1 path on the same device bit for bit: the steps are
 batched elementwise and state rows are independent.
+
+Metas: a head that submits one block per buffer (the video filters,
+one frame a block) passes the buffer's metas to `submit`; the chain's
+outputs take them in order, as its unbatched path would.
 """
 
 from __future__ import annotations
 
 import os
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -220,6 +225,7 @@ class _Member:
     pending: bytearray = field(default_factory=bytearray)
     dev_rows: list = field(default_factory=list)   # tensor submissions
     dev_avail: int = 0       # flattened samples queued in dev_rows
+    metas: deque = field(default_factory=deque)  # per submitted buffer
     dtype: object = None     # numpy dtype of the submitted samples
     pts: int | None = None
     rate: int = 0            # flattened samples per second (for pts)
@@ -507,10 +513,14 @@ class DeviceContext:
         return self._prime_n
 
     # -- dataflow ---------------------------------------------------------
-    def submit(self, element, samples, pts, rate) -> None:
+    def submit(self, element, samples, pts, rate, metas=None) -> None:
         """Append one stream's flat samples (a host ndarray, a tensor, or
-        a DeviceRow of a shared bank) at the chain's head element."""
+        a DeviceRow of a shared bank) at the chain's head element. The
+        `metas` of a buffer that is exactly one block go to the output
+        made from it."""
         m = self.member_for(element)
+        if metas is not None:
+            m.metas.append([x.copy() for x in metas])
         if _is_device(samples):
             n = _numel(samples.shape)
             if m.pts is None and pts is not None:
@@ -775,6 +785,8 @@ class DeviceContext:
             payload = DeviceRow(out, i) if device \
                 else host[i].astype(c.head.dtype, copy=False)
             buf = tail.element.make_batch_buffer(payload, pts, dur)
+            if c.head.metas:
+                buf.metas = c.head.metas.popleft()
             tail.element.srcpad.push(buf)
 
     # -- EOS / flush ------------------------------------------------------
@@ -840,8 +852,11 @@ class DeviceContext:
             pts = chain.out_pts
             if pts is not None:
                 chain.out_pts = pts + dur
-            out_bufs.append(chain.tail.element.make_batch_buffer(
-                host_row.astype(m.dtype, copy=False), pts, dur))
+            buf = chain.tail.element.make_batch_buffer(
+                host_row.astype(m.dtype, copy=False), pts, dur)
+            if m.metas:
+                buf.metas = m.metas.popleft()
+            out_bufs.append(buf)
 
         out_bufs: list[Buffer] = []
         while self._avail(m) > 0:

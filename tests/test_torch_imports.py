@@ -134,6 +134,20 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.elements.video.ccoverlay\n"
             "import gstpu_torch.elements.video.cccombiner\n"
             "import gstpu_torch.elements.text.textelements\n"
+            "import gstpu_torch.codecs.brotli_rfc7932\n"
+            "import gstpu_torch.codecs.brotli_ctypes\n"
+            "import gstpu_torch.elements.generic.compress\n"
+            "import gstpu_torch.elements.generic.plumbing\n"
+            "import gstpu_torch.elements.generic.sodium\n"
+            "import gstpu_torch.elements.generic.blocking_adapter\n"
+            "import gstpu_torch.elements.utils_.supervise\n"
+            "import gstpu_torch.elements.utils_.fallbacksrc\n"
+            "import gstpu_torch.elements.utils_.uriplaylistbin\n"
+            "import gstpu_torch.elements.utils_.debugsei\n"
+            "import gstpu_torch.elements.video.transcriberbin\n"
+            "import gstpu_torch.net.rtp.packet\n"
+            "import gstpu_torch.utils.validate\n"
+            "import gstpu_torch.tools.launch, gstpu_torch.tools.inspect\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
@@ -192,7 +206,21 @@ def test_port_has_its_own_registry():
              "st2038ancdemux", "st2038ancmux", "cea608overlay",
              "cea708overlay", "cccombiner", "ccextractor", "regex",
              "textwrap", "jsongstenc", "jsongstparse", "textaccumulate",
-             "textahead")
+             "textahead",
+             # plumbing, compression, sodium, the supervisors, fallbacksrc,
+             # transcriberbin and the alias rows of Queue D item 3
+             "flatecompress", "flatedecompress", "brotlicompress",
+             "brotlidecompress", "streamgrouper", "originalbuffersave",
+             "originalbufferrestore", "gopbuffer", "intersink", "intersrc",
+             "sodiumencrypter", "sodiumdecrypter", "ts-blocking-adapter",
+             "fallbackswitch", "livesync", "togglerecord", "fallbacksrc",
+             "uriplaylistbin", "debugseimetainserter", "transcriberbin",
+             "translationbin", "rsidentity", "rsfilesrc", "rsfilesink",
+             "deflatecompress", "deflatedecompress", "zlibcompress",
+             "zlibdecompress", "ts-queue", "ts-appsrc", "ts-audiotestsrc",
+             "ts-intersink", "ts-intersrc", "ts-proxysink", "ts-proxysrc",
+             "rssinesrc", "rsrgb2gray", "rsprogressbin", "ts-clocksync",
+             "ts-input-selector", "ts-rtpdtmfsrc")
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
@@ -200,7 +228,7 @@ def test_port_has_its_own_registry():
         assert ref.__module__.startswith("gstpu.")
         assert element_rank(name) == jax_rank(name), name
     assert set(names) <= set(list_factories())
-    assert len(list_factories()) == 110
+    assert len(list_factories()) == 151
     # the ONVIF converters are ported; gstpu's RTP payloaders are not
     assert not {"onvifmetadatapay", "onvifmetadatadepay"} \
         & set(list_factories())
