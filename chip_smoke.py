@@ -223,12 +223,39 @@ of every kernel library in DIR and needs no card.)
    --device exits 0, and non-zero with core/device.py's error when
    CUDA_VISIBLE_DEVICES hides the card; `python -m
    gstpu_torch.tools.inspect intersrc` exits 0.
+17. runs the RTP stack, UDP, TCP and ONVIF metadata of Queue D item 4
+   between the card's chains and the network, all on 127.0.0.1: (a) 1 s
+   of the flagship's 192 kHz stereo (the echo's output a CUDA tensor)
+   `! audioloudnorm`, 14b's telephony conversion to 8 kHz S16 mono,
+   `alawenc ! rtppcmapay2 mtu=172 ! rtpsend ! raptorqenc ! udpsink`, a
+   probe dropping seeded source packets (at most the repair packets of a
+   block) before the socket, received by `udpsrc ! raptorqdec ! rtprecv
+   latency=0 ! rtppcmadepay2 ! alawdec ! appsink`: the native recvmmsg
+   path received every datagram, every source packet comes out of
+   raptorqdec, the RTP payloads are what alawenc wrote and the samples
+   the CPU run's bit for bit; (b) BASELINE config 4's 1080p grade, 4
+   frames, `! rtpvrawpay2 mtu=1400 ! udpsink` into `udpsrc !
+   rtpvrawdepay2 ! appsink`, the receiver driven from a probe on udpsink
+   every 32 datagrams: each frame the direct string's byte for byte, 0
+   packets lost by sequence number, one `Buffer.array` call a frame by
+   the payloader and none by any other element, each kernel once a frame;
+   (c) the grade on 8 frames into `onvifmetadatacombiner`, seeded ONVIF
+   boxes on frames 1 and 5 through `onvifmetadatapay ! onvifmetadatadepay
+   ! onvifmetadataparse` into its meta pad, then `onvifmetadataoverlay`:
+   frames and metas equal to the same elements fed the direct string's
+   frames as host arrays, one read on each boxed frame and none
+   elsewhere, the other frames the CUDA tensors that went in; (d) the
+   grade on 4 frames into `tcpserversink`, read by `tcpclientsrc` in a
+   receiving pipeline on its own thread: the bytes the direct string's,
+   one read a frame. fps, packets a frame and losses, and host ms a frame
+   (or a second of audio) by element under the pad-push tracer.
+   `rtspsrc2`, `mpegtslivesrc` and `rtpgccbwe` are named, not run.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
 of the analytics path, of the parallel layer, of the host edge, of the
-host codecs, of the captions and of the plumbing, the card's name and
-power limit, one
+host codecs, of the captions, of the plumbing and of the network edge,
+the card's name and power limit, one
 JSON line of kernels and last `{"ok": true, "device": {...}}`. Any failed
 phase raises, and the script then exits non-zero without that last line;
 so does a machine without CUDA or a directory without the gstpu_torch
@@ -418,6 +445,31 @@ SWITCH_HEALTHY, SWITCH_BACKUP = 6, 4
 RECORD_GOP, RECORD_TOGGLES = 4, {2: True, 9: False, 11: True}
 BROTLI_QUALITY = 5
 SODIUM_NONCE = bytes(range(24))
+
+# the network edge behind the card (phase 17), all on 127.0.0.1: 14b's
+# telephony leg as A-law RTP of 20 ms packets (mtu 172: 160 B of payload)
+# through rtpsend and raptorqenc (8 source packets a block, 2 repair
+# packets of payload type 97) into udpsink, seeded source packets dropped
+# before the socket (17a); BASELINE config 4's 1080p grade as RFC 4175 raw
+# video at mtu 1400 (17b), with ONVIF boxes on frames 1 and 5 (17c), and
+# over TCP in 1 MiB reads (17d). The sender's probe on udpsink drives the
+# receiving pipeline every RTP_PACE datagrams, so that the receiver's
+# socket (Linux's default buffer holds about 90 datagrams of 1400 B) never
+# holds more than that.
+RTP_FRAMES, ONVIF_FRAMES, ONVIF_BOXES = 4, 8, (1, 5)
+RTP_MTU, RTP_RECV_MTU, PHONE_MTU = 1400, 1500, 172
+RTP_FEC_K, RTP_FEC_REPAIR, RTP_FEC_PT = 8, 2, 97
+RTP_PACE, RTP_SSRC, TCP_BLOCK = 32, 0x17A, 1 << 20
+ONVIF_NS = "http://www.onvif.org/ver10/schema"
+NOT_ON_THE_CARD = {
+    "rtspsrc2": "a control protocol whose canned servers live in the "
+                "tests; no device payload crosses it (tests/"
+                "test_torch_net.py holds it against gstpu's)",
+    "mpegtslivesrc": "a PCR clock slaved to a TS source; no device payload "
+                     "crosses it (tests/test_torch_net.py)",
+    "rtpgccbwe": "needs TWCC feedback (net/rtp/twcc.py, Queue D item 6); "
+                 "the estimator is held against gstpu's in "
+                 "tests/test_torch_rtp.py"}
 
 
 def log(*args) -> None:
@@ -4637,6 +4689,527 @@ def plumbing_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
     return res
 
 
+def drain(p) -> None:
+    """Run `p`'s scheduler rounds until a round does no work: a receiving
+    pipeline takes every datagram its socket holds."""
+    while p.iterate():
+        pass
+
+
+class NativeRecv:
+    """Counts the calls of a package's native recvmmsg, and the datagrams
+    they returned, while the `with` block runs; `built` is False where
+    the library did not build (recv_batch then takes its per-packet
+    Python path)."""
+
+    def __init__(self, package):
+        self.net = importlib.import_module(f"{package.__name__}.native_net")
+
+    def __enter__(self):
+        self.lib = self.net.load()
+        self.built = self.lib is not None
+        self.calls = self.datagrams = 0
+        if self.built:
+            self._fn = self.lib.gstpu_net_recvmmsg
+
+            def counted(*args):
+                n = self._fn(*args)
+                self.calls += 1
+                self.datagrams += max(n, 0)
+                return n
+            self.lib.gstpu_net_recvmmsg = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.built:
+            self.lib.gstpu_net_recvmmsg = self._fn
+
+
+def record_buffers(pad) -> list:
+    """The buffers that pass `pad` from now on, in order (a probe)."""
+    out = []
+
+    def probe(_, item):
+        if hasattr(item, "to_bytes"):
+            out.append(item)
+    pad.add_probe(probe)
+    return out
+
+
+def udp_pair(gstpu_torch, device: str, send: str, recv: str, taps=(),
+             feed=None, drop=None) -> dict:
+    """The receiving string `recv` (`udpsrc name=src port=0 ...`) set
+    PLAYING, then the sending string `send`, its `{port}` the receiver's,
+    run to its end, `feed(p)` pushing its appsrc input; then the receiver
+    drained. A probe on the sender's `udp` (udpsink) sink pad drops each
+    datagram for which `drop(bytes)` is true and drives the receiver every
+    RTP_PACE datagrams sent, so that its socket never holds more than
+    that. `taps` names (pipeline, element, pad) whose buffers are recorded
+    (record_buffers). The pipelines (in NULL), the wall seconds, the
+    probe's counts, the native recvmmsg counts (NativeRecv), the recorded
+    buffers by tap and the receiver's appsink `out` buffers."""
+    gstpu_torch.init(device=device)
+    r = gstpu_torch.parse_launch(recv)
+    r.set_state(gstpu_torch.State.PLAYING)
+    s = gstpu_torch.parse_launch(send.format(
+        port=r.get_by_name("src").bound_port))
+    pipes = {"send": s, "recv": r}
+    recorded = {t: record_buffers(pipes[t[0]].get_by_name(t[1])
+                                  .static_pad(t[2])) for t in taps}
+    counts = {"sent": 0, "dropped": 0}
+
+    def pace(_, item):
+        if not hasattr(item, "to_bytes"):
+            return None
+        if drop is not None and drop(item.to_bytes()):
+            counts["dropped"] += 1
+            return "drop"
+        counts["sent"] += 1
+        if counts["sent"] % RTP_PACE == 0:
+            drain(r)
+        return None
+    s.get_by_name("udp").static_pad("sink").add_probe(pace)
+    s.set_state(gstpu_torch.State.PLAYING)
+    with NativeRecv(gstpu_torch) as native:
+        t0 = time.perf_counter()
+        if feed is not None:
+            feed(s)
+        s.run(timeout=600)
+        drain(r)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    out = r.get_by_name("out").pull_all()
+    for p in (s, r):
+        p.set_state(gstpu_torch.State.NULL)
+    return {"pipes": pipes, "seconds": dt, "counts": counts,
+            "native": {"built": native.built, "calls": native.calls,
+                       "datagrams": native.datagrams},
+            "taps": recorded, "out": out}
+
+
+def telephony_strings() -> tuple:
+    """17a's strings: the flagship at 192 kHz F64 stereo (fed to appsrc
+    `src`) into 8 kHz S16 mono, A-law, 20 ms RTP packets (mtu PHONE_MTU),
+    rtpsend and raptorqenc into udpsink; and udpsrc through raptorqdec,
+    rtprecv, rtppcmadepay2 and alawdec into an appsink."""
+    caps = (f"audio/x-raw, format=F64LE, rate={RATE_192K}, channels=2, "
+            f"layout=interleaved")
+    send = (f'appsrc name=src caps="{caps}" ! rsaudioecho name=echo '
+            f'delay=250000000 intensity={AUDIO_INTENSITY} '
+            f'feedback={AUDIO_FEEDBACK} ! audioloudnorm name=norm ! '
+            f'audioresample name=res ! audio/x-raw, rate={PHONE_RATE} ! '
+            f'audioconvert name=conv ! audio/x-raw, format=S16LE, '
+            f'channels=1 ! alawenc name=ae ! rtppcmapay2 name=pay '
+            f'mtu={PHONE_MTU} ssrc={RTP_SSRC} seqnum-offset=0 '
+            f'timestamp-offset=0 ! rtpsend name=send ! raptorqenc name=fec '
+            f'symbols-per-block={RTP_FEC_K} repair-packets={RTP_FEC_REPAIR} '
+            f'repair-pt={RTP_FEC_PT} ! udpsink name=udp host=127.0.0.1 '
+            f'port={{port}}')
+    recv = (f"udpsrc name=src port=0 mtu={RTP_RECV_MTU} ! raptorqdec "
+            f"name=fec repair-pt={RTP_FEC_PT} ! application/x-rtp, "
+            f"media=audio, clock-rate={PHONE_RATE}, encoding-name=PCMA, "
+            f"payload=8 ! rtprecv name=recv latency=0 ! rtppcmadepay2 "
+            f"name=depay ! alawdec name=ad ! appsink name=out sync=false")
+    return send, recv
+
+
+def fec_drops(gstpu_torch, seed: int):
+    """A `drop` for udp_pair: it drops seeded source packets, 1 to
+    RTP_FEC_REPAIR of each block of RTP_FEC_K, and no repair packet; the
+    source packets it saw, in order, in its `.seen`."""
+    pk = importlib.import_module(f"{gstpu_torch.__name__}.net.rtp.packet")
+    rng = np.random.default_rng(seed)
+    plan: dict = {}
+    seen: list = []
+
+    def drop(data: bytes) -> bool:
+        if pk.RtpPacket.parse(data).payload_type == RTP_FEC_PT:
+            return False
+        i = len(seen)
+        seen.append(data)
+        block = i // RTP_FEC_K
+        if block not in plan:
+            m = 1 + int(rng.integers(0, RTP_FEC_REPAIR))
+            plan[block] = set(rng.choice(RTP_FEC_K, m, replace=False)
+                              .tolist())
+        return i % RTP_FEC_K in plan[block]
+    drop.seen = seen
+    return drop
+
+
+def telephony_rtp(gstpu_torch, device: str, seconds: float) -> dict:
+    """17a on `device`: `seconds` of edge_signal through telephony_strings
+    with fec_drops. udp_pair's result, with what alawenc wrote (`alaw`),
+    the source packets sent (`sent`, the dropped ones too), those out of
+    raptorqdec (`recovered`), the RTP payloads into the depayloader
+    (`payloads`), the decoded samples (`samples`) and the decoder's
+    stats."""
+    send, recv = telephony_strings()
+    x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+    drop = fec_drops(gstpu_torch, SEED)
+    res = udp_pair(gstpu_torch, device, send, recv,
+                   (("send", "ae", "src"), ("recv", "fec", "src"),
+                    ("recv", "depay", "sink")),
+                   feed_blocks(gstpu_torch, x, RATE_192K), drop)
+    pk = importlib.import_module(f"{gstpu_torch.__name__}.net.rtp.packet")
+    taps = res["taps"]
+    res.update(
+        alaw=b"".join(b.to_bytes() for b in taps["send", "ae", "src"]),
+        sent=drop.seen,
+        recovered=[b.to_bytes() for b in taps["recv", "fec", "src"]],
+        payloads=b"".join(pk.RtpPacket.parse(b.to_bytes()).payload
+                          for b in taps["recv", "depay", "sink"]),
+        samples=b"".join(b.to_bytes() for b in res["out"]),
+        stats=dict(res["pipes"]["recv"].get_by_name("fec").stats))
+    return res
+
+
+def vraw_strings(w: int, h: int, n: int, cube: Path) -> tuple:
+    """17b's strings: 13b's grade at w x h on n frames into rtpvrawpay2 at
+    mtu RTP_MTU and udpsink; udpsrc into rtpvrawdepay2 and an appsink."""
+    src, grade = grade_strings(w, h, n, cube)
+    send = (f"{src} ! {grade} ! rtpvrawpay2 name=pay mtu={RTP_MTU} "
+            f"ssrc={RTP_SSRC} seqnum-offset=0 timestamp-offset=0 ! udpsink "
+            f"name=udp host=127.0.0.1 port={{port}}")
+    recv = (f'udpsrc name=src port=0 mtu={RTP_RECV_MTU} caps="application/'
+            f'x-rtp, media=video, encoding-name=RAW, clock-rate=90000, '
+            f'payload=96, sampling=RGBA, width=(string){w}, height=(string)'
+            f'{h}, depth=(string)8" ! rtpvrawdepay2 name=depay ! appsink '
+            f'name=out sync=false')
+    return send, recv
+
+
+def vraw_rtp(gstpu_torch, device: str, w: int, h: int, n: int,
+             cube: Path) -> dict:
+    """17b on `device`: udp_pair's result for vraw_strings, with the
+    frames received (`frames`, bytes), the packets a frame, the RTP
+    sequence numbers into the depayloader and those lost (`lost`: missing
+    between the first and the last, and after the last sent)."""
+    send, recv = vraw_strings(w, h, n, cube)
+    res = udp_pair(gstpu_torch, device, send, recv,
+                   (("recv", "depay", "sink"),))
+    pk = importlib.import_module(f"{gstpu_torch.__name__}.net.rtp.packet")
+    seqs = [pk.RtpPacket.parse(b.to_bytes()).seqnum
+            for b in res["taps"]["recv", "depay", "sink"]]
+    sent = res["counts"]["sent"]
+    res.update(frames=[b.to_bytes() for b in res["out"]], seqnums=seqs,
+               packets_a_frame=sent / n,
+               lost=sent - len(set(seqs)),
+               in_order=seqs == list(range(sent)))
+    return res
+
+
+def onvif_docs(rng) -> list:
+    """17c's metadata: an event document at frame 0's time, then on each
+    frame of ONVIF_BOXES a tt:Frame with two seeded bounding boxes, its
+    UtcTime and pts mid-frame (so that the parser's UTC-to-pts mapping,
+    pinned by the first box document, puts each on its frame). (xml, pts)
+    pairs."""
+    base = 1_767_225_600          # 2026-01-01T00:00:00Z
+    dur = 10 ** 9 // 30
+    docs = [(f'<tt:MetadataStream xmlns:tt="{ONVIF_NS}"><tt:Event>'
+             f'<tt:MetadataStream/></tt:Event></tt:MetadataStream>'
+             .encode(), 0)]
+    for k in ONVIF_BOXES:
+        pts = k * dur + dur // 2
+        us = round(pts / 1000)
+        utc = time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(base)) \
+            + f".{us:06d}Z"
+        boxes = ""
+        for obj in range(2):
+            x = np.sort(rng.uniform(-0.9, 0.9, 2))
+            y = np.sort(rng.uniform(-0.9, 0.9, 2))
+            boxes += (f'<tt:Object ObjectId="{obj}"><tt:Appearance>'
+                      f'<tt:Shape><tt:BoundingBox left="{x[0]:.4f}" '
+                      f'top="{y[1]:.4f}" right="{x[1]:.4f}" '
+                      f'bottom="{y[0]:.4f}"/></tt:Shape></tt:Appearance>'
+                      f'</tt:Object>')
+        docs.append((f'<tt:MetadataStream xmlns:tt="{ONVIF_NS}">'
+                     f'<tt:VideoAnalytics><tt:Frame UtcTime="{utc}">{boxes}'
+                     f'</tt:Frame></tt:VideoAnalytics></tt:MetadataStream>'
+                     .encode(), pts))
+    return docs
+
+
+def onvif_grade(gstpu_torch, device: str, w: int, h: int, n: int,
+                cube: Path, docs, frames=None) -> dict:
+    """17c on `device`: the grade (or, given `frames`, those frames through
+    appsrc `vsrc`) into onvifmetadatacombiner's media pad, `docs` through
+    `appsrc ! onvifmetadatapay ! onvifmetadatadepay ! onvifmetadataparse`
+    into its meta pad, then onvifmetadataoverlay into an appsink. The
+    pipeline (in NULL), the wall seconds, the frames into the combiner's
+    media pad and out of the overlay."""
+    src, grade = grade_strings(w, h, n, cube)
+    caps = f"video/x-raw, format=RGBA, width={w}, height={h}, framerate=30/1"
+    video = (f"{src} ! {grade}" if frames is None
+             else f'appsrc name=vsrc caps="{caps}"')
+    launch = (f"{video} ! onvifmetadatacombiner name=comb ! "
+              f"onvifmetadataoverlay name=ov ! appsink name=out")
+    taps = {}
+
+    def build(p) -> None:
+        gstpu_torch.parse_launch(
+            'appsrc name=msrc caps="application/x-onvif-metadata, '
+            'encoding=utf8" ! onvifmetadatapay name=opay ! '
+            'onvifmetadatadepay name=odepay ! onvifmetadataparse name=parse',
+            pipeline=p)
+        p.get_by_name("parse").link(p.get_by_name("comb"))
+        taps["in"] = record_buffers(p.get_by_name(
+            "lut" if frames is None else "vsrc").static_pad("src"))
+
+    def feed(p) -> None:
+        msrc = p.get_by_name("msrc")
+        for xml, pts in docs:
+            msrc.push_buffer(gstpu_torch.Buffer(xml, pts=pts))
+        msrc.end_of_stream()
+        if frames is not None:
+            vsrc = p.get_by_name("vsrc")
+            for b in frames:
+                vsrc.push_buffer(gstpu_torch.Buffer(
+                    np.asarray(b.array), pts=b.pts, duration=b.duration))
+            vsrc.end_of_stream()
+
+    p, dt, out, _ = run_string(gstpu_torch, device, launch, ("out",), feed,
+                               build)
+    return {"pipe": p, "seconds": dt, "in": taps["in"], "out": out["out"]}
+
+
+def tcp_grade(gstpu_torch, device: str, w: int, h: int, n: int,
+              cube: Path) -> dict:
+    """17d on `device`: the grade into tcpserversink (port 0), read by
+    `tcpclientsrc ! appsink` in a receiving pipeline of its own on a
+    `run_async` thread, which ends when the sender, set to NULL after its
+    last frame, closes the connection. The pipelines (in NULL), the
+    sender's seconds and the bytes received."""
+    gstpu_torch.init(device=device)
+    State = gstpu_torch.State
+    src, grade = grade_strings(w, h, n, cube)
+    s = gstpu_torch.parse_launch(f"{src} ! {grade} ! tcpserversink name=tcp "
+                                 f"port=0")
+    s.set_state(State.READY)
+    r = gstpu_torch.parse_launch(
+        f"tcpclientsrc name=src port={s.get_by_name('tcp').bound_port} "
+        f"blocksize={TCP_BLOCK} ! appsink name=out sync=false")
+    r.set_state(State.PLAYING)
+    thread = r.run_async()
+    s.set_state(State.PLAYING)
+    t0 = time.perf_counter()
+    s.run(timeout=600)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    s.set_state(State.NULL)
+    thread.join(600)
+    if thread.is_alive():
+        raise AssertionError("17d: the TCP receiver did not end")
+    got = b"".join(b.to_bytes() for b in r.get_by_name("out").pull_all())
+    r.set_state(State.NULL)
+    return {"pipes": {"send": s, "recv": r}, "seconds": dt, "bytes": got}
+
+
+def new_reads(calls, names) -> dict:
+    """The `Buffer.array` calls (ArrayCalls) by each of the elements
+    `names`: the new elements of a string, beside its grade."""
+    reads = calls.by_element()
+    return {x: reads[x] for x in names if reads.get(x)}
+
+
+def traced(kernels, fn):
+    """`fn()` with every kernel's count set to 0 just before, under the
+    pad-push tracer and ArrayCalls: its result, the tracer, the calls and
+    each kernel's launches."""
+    tracer = push_tracer()
+    for k in kernels:
+        k.launches = 0
+    tracer.install()
+    try:
+        with ArrayCalls() as calls:
+            res = fn()
+    finally:
+        tracer.uninstall()
+    return res, tracer, calls, {k.name: k.launches for k in kernels}
+
+
+def rtp_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """17. Queue D item 4's elements between the card's chains and the
+    network, all on 127.0.0.1: (a) the flagship's telephony audio as
+    A-law RTP through rtpsend and raptorqenc over UDP, seeded source
+    packets dropped and recovered, the samples the CPU run's; (b)
+    BASELINE config 4's 1080p grade as RFC 4175 raw video over UDP; (c)
+    ONVIF boxes combined onto the grade and drawn; (d) the grade over TCP.
+    Each kernel's launches in b-d."""
+    cube = tmp / "rtp.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    res, launches = {}, {k.name: 0 for k in kernels}
+    w, h = EDGE_W, EDGE_H
+
+    # 17a
+    a, tracer, _, _ = traced(kernels, lambda: telephony_rtp(
+        gstpu_torch, "cuda", PHONE_SECONDS))
+    own = {"send": own_ms(tracer, a["pipes"]["send"],
+                          ["echo", "norm", "res", "conv", "ae", "pay",
+                           "send", "fec", "udp"], PHONE_SECONDS),
+           "recv": own_ms(tracer, a["pipes"]["recv"],
+                          ["fec", "recv", "depay", "ad", "out"],
+                          PHONE_SECONDS)}
+    echo_out = tracer.payload.get(a["pipes"]["send"].get_by_name("echo")
+                                  .static_pad("src"))
+    cpu = telephony_rtp(gstpu_torch, "cpu", PHONE_SECONDS)
+    r = res["telephony"] = {
+        "seconds_of_audio": PHONE_SECONDS, "wall_s": a["seconds"],
+        "cpu_wall_s": cpu["seconds"], "source_packets": len(a["sent"]),
+        "datagrams": a["counts"]["sent"], "dropped": a["counts"]["dropped"],
+        "fec": a["stats"], "native_recvmmsg": a["native"],
+        "samples": len(a["samples"]) // 2,
+        "equal_to_cpu": a["samples"] == cpu["samples"],
+        "payloads_are_alawenc": a["payloads"] == a["alaw"],
+        "all_recovered": a["recovered"] == a["sent"],
+        "host_ms_per_s": own, "echo_output": echo_out}
+    log(f"[rtp] 17a: {PHONE_SECONDS} s of the flagship at 192 kHz stereo "
+        f"into {r['samples']} A-law samples at {PHONE_RATE} Hz in "
+        f"{r['source_packets']} RTP packets of 20 ms, {r['datagrams']} "
+        f"datagrams sent with {RTP_FEC_REPAIR} repair a block of "
+        f"{RTP_FEC_K} after {r['dropped']} source packets were dropped; "
+        f"raptorqdec {r['fec']}, every source packet out of it: "
+        f"{r['all_recovered']}; the payloads what alawenc wrote: "
+        f"{r['payloads_are_alawenc']}; the samples "
+        f"{'equal to' if r['equal_to_cpu'] else 'DIFFER FROM'} the CPU "
+        f"run's; native recvmmsg {a['native']}; {a['seconds']:.3f} s on the "
+        f"card (tracer on), {cpu['seconds']:.3f} s on the CPU; host ms per "
+        f"second of audio: " + "; ".join(
+            f"{side} " + ", ".join(f"{k} {v:.2f}" for k, v in o.items())
+            for side, o in own.items())
+        + f"; the echo's output: {echo_out}  [{smi}]")
+    if not (a["native"]["built"]
+            and a["native"]["datagrams"] == a["counts"]["sent"] > 0):
+        raise AssertionError(f"17a: the native recvmmsg path did not receive "
+                             f"every datagram: {a['native']}, "
+                             f"{a['counts']}")
+    if not (r["dropped"] > 0 and r["all_recovered"] and a["stats"] == {
+            "recovered": r["dropped"], "unrecovered": 0}):
+        raise AssertionError(f"17a: not every dropped packet came back: {r}")
+    if r["samples"] != round(PHONE_SECONDS * PHONE_RATE) \
+            or not r["equal_to_cpu"] or not r["payloads_are_alawenc"] \
+            or echo_out != "tensor on cuda":
+        raise AssertionError(f"17a: {r}")
+
+    # the references: the card's own direct strings
+    def direct(n):
+        src, grade = grade_strings(w, h, n, cube)
+        return run_string(gstpu_torch, "cuda", f"{src} ! {grade} ! appsink "
+                          f"name=out", ("out",))[2]["out"]
+    ref = {n: direct(n) for n in (RTP_FRAMES, ONVIF_FRAMES)}
+    want = {n: [b.to_bytes() for b in ref[n]] for n in ref}
+
+    # 17b
+    b, tracer, calls, n = traced(kernels, lambda: vraw_rtp(
+        gstpu_torch, "cuda", w, h, RTP_FRAMES, cube))
+    r = res["vraw"] = {
+        "frames": len(b["frames"]), "fps": RTP_FRAMES / b["seconds"],
+        "packets_a_frame": b["packets_a_frame"], "lost": b["lost"],
+        "in_order": b["in_order"], "native_recvmmsg": b["native"],
+        "equal": b["frames"] == want[RTP_FRAMES], "launches": n,
+        "array_calls": new_reads(calls, ("pay", "udp", "src", "depay",
+                                         "out")),
+        "downloads": dict(calls.tensor_calls),
+        "host_ms_a_frame": {
+            "send": own_ms(tracer, b["pipes"]["send"], ["pay", "udp"],
+                           RTP_FRAMES),
+            "recv": own_ms(tracer, b["pipes"]["recv"], ["depay", "out"],
+                           RTP_FRAMES)}}
+    log(f"[rtp] 17b: {r['frames']} frames of {w}x{h} RGBA through the grade "
+        f"into rtpvrawpay2 mtu={RTP_MTU} and udpsink, {r['packets_a_frame']} "
+        f"packets a frame, {r['lost']} lost, in order: {r['in_order']}; "
+        f"{r['fps']:.3f} fps with the receiver paced every {RTP_PACE} "
+        f"datagrams on the same thread (tracer on); frames "
+        f"{'equal to' if r['equal'] else 'DIFFER FROM'} the direct "
+        f"string's; launches {n}; Buffer.array calls {r['array_calls']}, "
+        f"downloads {r['downloads']}; native recvmmsg {b['native']}; host ms "
+        f"a frame {r['host_ms_a_frame']}  [{smi}]")
+    if not r["equal"] or r["lost"] or not r["in_order"] \
+            or r["array_calls"] != {"pay": RTP_FRAMES} \
+            or r["downloads"] != {"pay": RTP_FRAMES} \
+            or any(v != RTP_FRAMES for v in n.values()) \
+            or b["native"]["datagrams"] != b["counts"]["sent"]:
+        raise AssertionError(f"17b: {r}")
+    for k in kernels:
+        launches[k.name] += n[k.name]
+
+    # 17c
+    docs = onvif_docs(np.random.default_rng(SEED))
+    host = onvif_grade(gstpu_torch, "cuda", w, h, ONVIF_FRAMES, cube, docs,
+                       ref[ONVIF_FRAMES])
+    c, tracer, calls, n = traced(kernels, lambda: onvif_grade(
+        gstpu_torch, "cuda", w, h, ONVIF_FRAMES, cube, docs))
+    boxed = [k for k in range(ONVIF_FRAMES) if k in ONVIF_BOXES]
+    r = res["onvif"] = {
+        "frames": len(c["out"]), "fps": ONVIF_FRAMES / c["seconds"],
+        "launches": n,
+        "array_calls": new_reads(calls, ("msrc", "opay", "odepay", "parse",
+                                         "comb", "ov", "out")),
+        "reads_on_boxed": [calls.of("ov", c["out"][k].pts) for k in boxed],
+        "payloads": [payload_kind(x.data) for x in c["out"]],
+        "unread_frames_are_the_input": [
+            x.data is y.data for k, (x, y) in enumerate(zip(c["out"],
+                                                            c["in"]))
+            if k not in boxed],
+        "metas": [len(x.metas) for x in c["out"]],
+        "equal_to_host_fed": [buffer_record(x) for x in c["out"]]
+        == [buffer_record(x) for x in host["out"]],
+        "host_ms_a_frame": own_ms(tracer, c["pipe"],
+                                  ["comb", "ov", "parse"], ONVIF_FRAMES)}
+    log(f"[rtp] 17c: {r['frames']} frames of {w}x{h} through the grade into "
+        f"onvifmetadatacombiner, boxes on frames {boxed} from "
+        f"onvifmetadatapay ! depay ! parse, then onvifmetadataoverlay: "
+        f"frames and metas {'equal to' if r['equal_to_host_fed'] else 'DIFFER FROM'} "
+        f"the same elements fed host frames; metas a frame {r['metas']}; "
+        f"Buffer.array calls {r['array_calls']} ({r['reads_on_boxed']} on "
+        f"the boxed frames); payloads {r['payloads']}; the unread frames the "
+        f"tensors that went in: {r['unread_frames_are_the_input']}; "
+        f"launches {n}; {r['fps']:.3f} fps (tracer on); host ms a frame "
+        f"{r['host_ms_a_frame']}  [{smi}]")
+    if not r["equal_to_host_fed"] or r["frames"] != ONVIF_FRAMES \
+            or r["array_calls"] != {"ov": len(boxed)} \
+            or r["reads_on_boxed"] != [1] * len(boxed) \
+            or not all(r["unread_frames_are_the_input"]) \
+            or [r["payloads"][k] for k in range(ONVIF_FRAMES)
+                if k not in boxed] != ["tensor on cuda"] * (ONVIF_FRAMES
+                                                            - len(boxed)) \
+            or [r["metas"][k] > 0 for k in range(ONVIF_FRAMES)] \
+            != [k in boxed for k in range(ONVIF_FRAMES)] \
+            or any(v != ONVIF_FRAMES for v in n.values()):
+        raise AssertionError(f"17c: {r}")
+    for k in kernels:
+        launches[k.name] += n[k.name]
+
+    # 17d
+    d, tracer, calls, n = traced(kernels, lambda: tcp_grade(
+        gstpu_torch, "cuda", w, h, RTP_FRAMES, cube))
+    r = res["tcp"] = {
+        "bytes": len(d["bytes"]), "fps": RTP_FRAMES / d["seconds"],
+        "equal": d["bytes"] == b"".join(want[RTP_FRAMES]), "launches": n,
+        "array_calls": new_reads(calls, ("tcp", "src", "out")),
+        "host_ms_a_frame": own_ms(tracer, d["pipes"]["send"], ["tcp"],
+                                  RTP_FRAMES)}
+    log(f"[rtp] 17d: {RTP_FRAMES} frames of {w}x{h} through the grade into "
+        f"tcpserversink, {r['bytes']} B read by tcpclientsrc on its own "
+        f"thread, {'equal to' if r['equal'] else 'DIFFERENT FROM'} the direct "
+        f"string's; Buffer.array calls {r['array_calls']}; launches {n}; "
+        f"{r['fps']:.3f} fps (tracer on); host ms a frame "
+        f"{r['host_ms_a_frame']}  [{smi}]")
+    if not r["equal"] or r["array_calls"] != {"tcp": RTP_FRAMES} \
+            or any(v != RTP_FRAMES for v in n.values()):
+        raise AssertionError(f"17d: {r}")
+    for k in kernels:
+        launches[k.name] += n[k.name]
+    res["not_on_the_card"] = NOT_ON_THE_CARD
+    for name, why in NOT_ON_THE_CARD.items():
+        log(f"[rtp] not run on the card: {name}: {why}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -5033,11 +5606,18 @@ def main() -> int:
         plumbing = plumbing_phase(gstpu_torch, smi, Path(tmp), kernels)
     for row in rows:
         row["launches_plumbing"] = plumbing["launches"][row["name"]]
+    # 17. the RTP stack, UDP, TCP and ONVIF metadata of Queue D item 4
+    # between the card's chains and the network
+    t17 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        rtp = rtp_phase(gstpu_torch, smi, Path(tmp), kernels)
+    for row in rows:
+        row["launches_rtp"] = rtp["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
                                "11": t12 - t11, "12": t13 - t12,
                                "13": t14 - t13, "14": t15 - t14,
-                               "15": t16 - t15,
-                               "16": time.monotonic() - t16})
+                               "15": t16 - t15, "16": t17 - t16,
+                               "17": time.monotonic() - t17})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -5053,6 +5633,7 @@ def main() -> int:
     log(json.dumps({"host_codecs": codecs}))
     log(json.dumps({"captions": captions}))
     log(json.dumps({"plumbing": plumbing}))
+    log(json.dumps({"rtp": rtp}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

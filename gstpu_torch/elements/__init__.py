@@ -59,6 +59,15 @@ _MODULES = [
     "gstpu_torch.elements.mux.fmp4",
     "gstpu_torch.elements.mux.mpegts",
     "gstpu_torch.elements.mux.flvdemux",
+    "gstpu_torch.elements.net.rtp_elements",
+    "gstpu_torch.elements.net.rtp_video",
+    "gstpu_torch.elements.net.udp",
+    "gstpu_torch.elements.net.tcp",
+    "gstpu_torch.elements.net.rtsp",
+    "gstpu_torch.elements.net.mpegtslive",
+    "gstpu_torch.elements.net.raptorq",
+    "gstpu_torch.elements.net.gccbwe",
+    "gstpu_torch.elements.net.onvif",
     # last: _alias reads the registry when it is imported
     "gstpu_torch.elements.generic.aliases",
 ]

@@ -11,12 +11,9 @@ ts-clocksync, ts-rtpdtmfsrc).
 
 The port's copy of gstpu/elements/generic/aliases.py, with the rows
 whose targets the port registers. gstpu's other rows wait for their
-targets (ROADMAP.md, Queue D): `udpsrc2`, `ts-udpsrc`, `ts-udpsink`
-and `ts-tcpclientsrc` for the UDP/TCP elements (item 4);
-`rtponvifmetadatapay`/`depay`, `rtpav1pay`/`depay` and
-`rtpsmpte291pay`/`depay` for the RTP payloaders (item 4);
-`quinnroqmux`/`quinnroqdemux` for the RoQ framing (item 5);
-`llamacpp-texttransform` for the LLM text elements (item 7).
+targets (ROADMAP.md, Queue D): `quinnroqmux`/`quinnroqdemux` for the
+RoQ framing (item 5); `llamacpp-texttransform` for the LLM text
+elements (item 7).
 """
 
 from __future__ import annotations
@@ -48,8 +45,11 @@ def _alias(new: str, existing: str) -> None:
 for _new, _old in (
         ("rsidentity", "identity"),
         ("rsfilesrc", "filesrc"), ("rsfilesink", "filesink"),
+        ("udpsrc2", "udpsrc"),
         ("imagersdec", "imagedecoder"),
         ("imagersoverlay", "imageoverlay"),
+        ("rtponvifmetadatapay", "onvifmetadatapay"),
+        ("rtponvifmetadatadepay", "onvifmetadatadepay"),
         ("deflatecompress", "flatecompress"),
         ("deflatedecompress", "flatedecompress"),
         ("zlibcompress", "flatecompress"),
@@ -58,11 +58,17 @@ for _new, _old in (
         # runtime's default execution model (SURVEY §2.4)
         ("ts-queue", "queue"), ("ts-appsrc", "appsrc"),
         ("ts-audiotestsrc", "audiotestsrc"),
+        ("ts-udpsrc", "udpsrc"), ("ts-udpsink", "udpsink"),
+        ("ts-tcpclientsrc", "tcpclientsrc"),
         ("ts-intersink", "intersink"), ("ts-intersrc", "intersrc"),
         ("ts-proxysink", "intersink"), ("ts-proxysrc", "intersrc"),
         # reference factory-name variants of elements we register
         # under their family names
         ("agingradio", "rsagingradio"),
+        ("rtpav1pay", "rtpav1pay2"),
+        ("rtpav1depay", "rtpav1depay2"),
+        ("rtpsmpte291pay", "rtpsmpte291pay2"),
+        ("rtpsmpte291depay", "rtpsmpte291depay2"),
 ):
     _alias(_new, _old)
 

@@ -1,2 +1,1 @@
-"""Network elements (reference net/): only what the port's analytics
-converters need."""
+"""Network elements (reference net/)."""

@@ -4,8 +4,7 @@ Pure byte codecs (no IO, no clocks) — the foundation of the sans-IO
 session design retained from the reference
 (net/rtp/src/rtpbin2/session.rs architecture).
 
-The port's copy of gstpu/net/rtp/packet.py: the packet codec alone; the
-RTP stack is not ported yet.
+The port's copy of gstpu/net/rtp/packet.py, as it stands.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ cases of tests/test_rtp_video_aging.py: the same seeded inputs and launch
 strings go through gstpu and through gstpu_torch, and the bytes, caps and
 timestamps must be equal. These modules are host numpy, scipy and the
 native library in both packages, so any difference is a fault of the
-copy: nothing here has a tolerance. The RTP cases (the PCMA payloader
-loopback) wait for the port's payloaders.
+copy: nothing here has a tolerance. The PCMA payloader loopback's twin is
+in test_torch_rtp.py.
 """
 
 import zlib

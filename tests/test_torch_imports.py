@@ -146,6 +146,20 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.elements.utils_.debugsei\n"
             "import gstpu_torch.elements.video.transcriberbin\n"
             "import gstpu_torch.net.rtp.packet\n"
+            "import gstpu_torch.native_net, gstpu_torch.net.fec\n"
+            "import gstpu_torch.net.rtp.basepay\n"
+            "import gstpu_torch.net.rtp.session\n"
+            "import gstpu_torch.net.rtp.jitterbuffer\n"
+            "import gstpu_torch.net.rtp.mparobust, gstpu_torch.net.rtp.gcc\n"
+            "import gstpu_torch.codecs.rtpjpeg\n"
+            "import gstpu_torch.elements.net.udp\n"
+            "import gstpu_torch.elements.net.rtp_elements\n"
+            "import gstpu_torch.elements.net.rtp_video\n"
+            "import gstpu_torch.elements.net.raptorq\n"
+            "import gstpu_torch.elements.net.gccbwe\n"
+            "import gstpu_torch.elements.net.tcp\n"
+            "import gstpu_torch.elements.net.rtsp\n"
+            "import gstpu_torch.elements.net.mpegtslive\n"
             "import gstpu_torch.utils.validate\n"
             "import gstpu_torch.tools.launch, gstpu_torch.tools.inspect\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -221,6 +235,30 @@ def test_port_has_its_own_registry():
              "ts-intersink", "ts-intersrc", "ts-proxysink", "ts-proxysrc",
              "rssinesrc", "rsrgb2gray", "rsprogressbin", "ts-clocksync",
              "ts-input-selector", "ts-rtpdtmfsrc")
+    # the RTP stack, UDP/TCP/RTSP, ONVIF metadata, FEC and GCC of Queue D
+    # item 4, and their alias rows
+    item4 = ("rtpL8pay2", "rtpL8depay2", "rtpL16pay2", "rtpL16depay2",
+             "rtpL24pay2", "rtpL24depay2", "rtppcmapay2", "rtppcmadepay2",
+             "rtppcmupay2", "rtppcmudepay2", "rtpopuspay2", "rtpopusdepay2",
+             "rtpamrpay2", "rtpamrdepay2", "rtpamrwbpay2", "rtpamrwbdepay2",
+             "rtpac3pay2", "rtpac3depay2", "rtpmpapay2", "rtpmpadepay2",
+             "rtpmparobustdepay2", "rtpmp4gpay2", "rtpmp4gdepay2",
+             "rtpmp4apay2", "rtpmp4adepay2", "rtpmpvpay2", "rtpmpvdepay2",
+             "rtpmp2tpay2", "rtpmp2tdepay2", "rtpjpegpay2", "rtpjpegdepay2",
+             "rtpklvpay2", "rtpklvdepay2", "rtpsmpte291pay2",
+             "rtpsmpte291depay2", "rtpsend", "rtprecv", "rtpvp8pay2",
+             "rtpvp8depay2", "rtpvp9pay2", "rtpvp9depay2", "rtpav1pay2",
+             "rtpav1depay2", "rtpvrawpay2", "rtpvrawdepay2",
+             "onvifmetadatapay", "onvifmetadatadepay", "onvifmetadataparse",
+             "onvifmetadatacombiner", "onvifmetadataoverlay",
+             "onvifmetadataextractor", "udpsrc", "udpsink", "tcpclientsrc",
+             "tcpserversink", "rtspsrc2", "raptorqenc", "raptorqdec",
+             "rtpgccbwe", "mpegtslivesrc", "udpsrc2", "rtponvifmetadatapay",
+             "rtponvifmetadatadepay", "ts-udpsrc", "ts-udpsink",
+             "ts-tcpclientsrc", "rtpav1pay", "rtpav1depay", "rtpsmpte291pay",
+             "rtpsmpte291depay")
+    assert len(set(item4)) == 70
+    names += item4
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
@@ -228,10 +266,12 @@ def test_port_has_its_own_registry():
         assert ref.__module__.startswith("gstpu.")
         assert element_rank(name) == jax_rank(name), name
     assert set(names) <= set(list_factories())
-    assert len(list_factories()) == 151
-    # the ONVIF converters are ported; gstpu's RTP payloaders are not
-    assert not {"onvifmetadatapay", "onvifmetadatadepay"} \
-        & set(list_factories())
+    assert len(list_factories()) == 221
+    # the ONVIF payloaders are ported beside the converters: the port's
+    # classes, from the module the converters import their names from
+    from gstpu_torch.elements.net import onvif
+    assert element_factory("onvifmetadatapay") is onvif.OnvifMetadataPay
+    assert element_factory("onvifmetadatadepay") is onvif.OnvifMetadataDepay
 
 
 def test_a420_templates_match_gstpu():

@@ -543,7 +543,10 @@ ALIASES = ("rsidentity", "rsfilesrc", "rsfilesink", "imagersdec",
            "imagersoverlay", "deflatecompress", "deflatedecompress",
            "zlibcompress", "zlibdecompress", "ts-queue", "ts-appsrc",
            "ts-audiotestsrc", "ts-intersink", "ts-intersrc", "ts-proxysink",
-           "ts-proxysrc", "agingradio")
+           "ts-proxysrc", "agingradio", "udpsrc2", "rtponvifmetadatapay",
+           "rtponvifmetadatadepay", "ts-udpsrc", "ts-udpsink",
+           "ts-tcpclientsrc", "rtpav1pay", "rtpav1depay", "rtpsmpte291pay",
+           "rtpsmpte291depay")
 
 
 def test_reference_names_resolve():

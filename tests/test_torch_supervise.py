@@ -462,14 +462,12 @@ def test_fallbacksrc_uri_and_dummy(tmp_path):
 
 
 def test_fallbacksrc_immediate_fallback():
-    """gstpu's primary is `udpsrc port=0`, a source nobody sends to; the
-    port has no udpsrc yet (ROADMAP Queue D item 4), so the twin's primary
-    is an `appsrc` nobody pushes to. The 5 s deadline only bounds a
-    hang."""
+    """The primary is `udpsrc port=0`, a source nobody sends to. The 5 s
+    deadline only bounds a hang."""
     def body(P):
         p = P.parse_launch("fallbacksrc name=fb ! appsink name=sink")
         fb = p.get_by_name("fb")
-        fb.source = "appsrc"
+        fb.source = "udpsrc port=0"
         fb.fallback_source = "audiotestsrc samplesperbuffer=64"
         fb.immediate_fallback = True
         fb.restart_timeout = 10 ** 12

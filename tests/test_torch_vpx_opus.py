@@ -7,8 +7,8 @@ frame's bytes, pts, duration and flags must be equal. Both packages drive
 the same libavcodec engines (libvpx, libopus) through the codec shim
 `native/gstpu_codec.cpp`, single-threaded, so the streams are
 deterministic and nothing here has a tolerance. The tests skip where the
-shim cannot be built (no libavcodec), as gstpu's do; the RTP and
-webrtcsink cases wait for the port's payloaders.
+shim cannot be built (no libavcodec), as gstpu's do; the webrtcsink
+cases wait for the port's webrtcsink (ROADMAP, Queue D item 6).
 """
 
 import numpy as np
@@ -85,6 +85,14 @@ def test_opus_element_loopback_psnr():
     assert abs(peak_hz - 440) < 15, peak_hz
 
 
+def test_opus_rtp_pay_depay_loopback():
+    bufs = run_pipeline(
+        'audiotestsrc num-buffers=30 samplesperbuffer=960 ! '
+        'capsfilter caps="audio/x-raw, format=F32LE, rate=48000, '
+        'channels=2" ! opusenc ! rtpopuspay2 ! rtpopusdepay2 ! opusdec')
+    assert sum(len(b[0]) for b in bufs) // 8 >= int(30 * 960 * 0.9)
+
+
 def test_opusenc_packet_timing():
     bufs = run_pipeline(
         'audiotestsrc num-buffers=10 samplesperbuffer=480 ! '
@@ -158,6 +166,16 @@ def test_vpx_element_loopback_psnr(codec):
     for r, d in zip(raw, dec):
         p = _psnr(np.frombuffer(r[0], np.uint8), np.frombuffer(d[0], np.uint8))
         assert p > 30, p
+
+
+@pytest.mark.parametrize("codec", ["vp8", "vp9"])
+def test_vpx_rtp_pay_depay_loopback(codec):
+    dec = run_pipeline(
+        'videotestsrc num-buffers=5 ! capsfilter caps="video/x-raw, '
+        f'format=I420, width=320, height=240" ! {codec}enc deadline=1 '
+        f'cpu-used=8 ! rtp{codec}pay2 ! rtp{codec}depay2 ! {codec}dec')
+    assert len(dec) == 5
+    assert len(dec[0][0]) == 320 * 240 * 3 // 2
 
 
 @pytest.mark.parametrize("codec,props", [
