@@ -250,12 +250,42 @@ of every kernel library in DIR and needs no card.)
    one read a frame. fps, packets a frame and losses, and host ms a frame
    (or a second of audio) by element under the pad-push tracer.
    `rtspsrc2`, `mpegtslivesrc` and `rtpgccbwe` are named, not run.
+18. runs the HLS/DASH sinks, the HTTP source and QUIC of Queue D item 5
+   between the card's chains and their audience, all on 127.0.0.1: (a)
+   BASELINE config 4's 1080p grade, 8 frames, `! cmafmux` in 2-frame
+   fragments teed into `hlscmafsink`, `dashsink2` and the video variant
+   of an `hlsmultivariantsink`, 1 s of the flagship's 192 kHz F64
+   stereo through a second `cmafmux` into its audio rendition, and 15a's
+   caption texts as CEA-608 through `cea608tojson ! jsontovtt !
+   hlswebvttsink`: every playlist, MPD, init and media segment byte for
+   byte the CPU run's (the audio segments' boxes but mdat byte for byte,
+   their samples within 1e-12), one `Buffer.array` call a frame by the
+   video cmafmux (two on the first, which gstpu's cmafmux keeps) and
+   none by a sink, each kernel once a frame; (b) 13a's
+   FLAC served by an in-process HTTP server through `reqwesthttpsrc`
+   into 13a's string on the card: the MP4 byte for byte 13a's filesrc
+   MP4, host ms per second of audio by element and of each source alone;
+   `fallbacksrc` with an http uri and `uriplaylistbin` with an http and
+   a file item into the flagship, the samples within 1e-12 of the CPU
+   run's; (c) where `cryptography` imports: the grade, 4 frames, as RFC
+   4175 RTP at mtu 1200 through `quinnroqmux ! quinnquicsink
+   use-datagram=true` into `quinnquicsrc ! quinnroqdemux !
+   rtpvrawdepay2` (0 RTP packets lost, the frames the CPU run's), 1 s
+   of 17a's telephony RTP and 1 graded frame's RTP on two QUIC streams
+   through `quinnquicmux ! quinnquicsink` into `quinnquicsrc !
+   quinnquicdemux` (each stream what its payloader sent, and the CPU
+   run's), and the telephony RTP through `quinnwtserversink` into
+   `quinnwtclientsrc ! rtppcmadepay2 ! alawdec` (the samples the CPU
+   run's); a probe on the QUIC sink connects both ends, drives the
+   receiver every 32 buffers and, at EOS, until every packet is acked.
+   QUIC packets a frame, losses and probes, fps and host ms by element.
+   `icecastsink` is named, not run.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
 of the analytics path, of the parallel layer, of the host edge, of the
-host codecs, of the captions, of the plumbing and of the network edge,
-the card's name and power limit, one
+host codecs, of the captions, of the plumbing, of the network edge and
+of the distribution edge, the card's name and power limit, one
 JSON line of kernels and last `{"ok": true, "device": {...}}`. Any failed
 phase raises, and the script then exits non-zero without that last line;
 so does a machine without CUDA or a directory without the gstpu_torch
@@ -265,6 +295,7 @@ package.
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import itertools
 import json
 import os
@@ -470,6 +501,29 @@ NOT_ON_THE_CARD = {
     "rtpgccbwe": "needs TWCC feedback (net/rtp/twcc.py, Queue D item 6); "
                  "the estimator is held against gstpu's in "
                  "tests/test_torch_rtp.py"}
+
+# the distribution edge behind the card (phase 18), all on 127.0.0.1: 18a
+# BASELINE config 4's 1080p grade on HLS_FRAMES frames through one cmafmux
+# cutting fragments of HLS_FRAGMENT_FRAMES, teed into hlscmafsink,
+# dashsink2 and an hlsmultivariantsink variant, with HLS_AUDIO_SECONDS of
+# the flagship at 192 kHz F64 stereo through a second cmafmux as the
+# variant's audio rendition and 15a's caption texts as WebVTT segments;
+# 18b 13a's FLAC served over HTTP into the flagship, and HTTP_CLIP_SECONDS
+# clips through fallbacksrc and uriplaylistbin; 18c the grade as RFC 4175
+# RTP at QUIC_MTU in RoQ datagrams over QUIC, 17a's telephony RTP and the
+# grade's on two QUIC streams, and the telephony RTP over WebTransport.
+# The sender's probe on its QUIC sink drives the receiving pipeline every
+# RTP_PACE buffers, and at EOS until every packet in flight is acked.
+HLS_FRAMES, HLS_FRAGMENT_FRAMES, HLS_AUDIO_SECONDS = 8, 2, 1.0
+HLS_AUDIO_FRAGMENT = 500_000_000
+HLS_CAPTIONS = tuple(t for t, _ in CAPTIONS_608 + CAPTIONS_708 if t)
+HTTP_CLIP_SECONDS = 0.25
+QUIC_FRAMES, QUIC_STREAM_FRAMES, QUIC_MTU = 4, 1, 1200
+NOT_ON_THE_CARD_18 = {
+    "icecastsink": "takes only audio/mpeg, Ogg or AAC, and no element of "
+                   "the port makes any of them from the card's audio; "
+                   "tests/test_torch_hls.py holds it against gstpu's "
+                   "behind a stand-in server"}
 
 
 def log(*args) -> None:
@@ -5210,6 +5264,794 @@ def rtp_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
     return res
 
 
+def run_to_eos(gstpu_torch, device: str, p, names, feed=None) -> float:
+    """Set `p` PLAYING, `feed(p)` pushing any appsrc input, and iterate it
+    until each element of `names` has posted EOS: a pipeline's run() ends
+    at the first EOS, and the branches of a string fed by several sources
+    end apart. The wall seconds, the card synchronised."""
+    mt = importlib.import_module(f"{gstpu_torch.__name__}.core.element")
+    done = set()
+
+    def seen(m) -> None:
+        if m.type is mt.MessageType.EOS and m.src is not None:
+            done.add(m.src.name)
+    p.bus.add_sync_handler(seen)
+    p.set_state(gstpu_torch.State.PLAYING)
+    t0 = time.perf_counter()
+    if feed is not None:
+        feed(p)
+    deadline = time.monotonic() + 600
+    while not set(names) <= done:
+        if p._error_seen is not None:
+            raise RuntimeError(f"pipeline error: {p._error_seen}")
+        if not p.iterate():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no EOS from {set(names) - done}")
+            time.sleep(0.001)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def hls_strings(w: int, h: int, n: int, cube: Path, out: Path) -> tuple:
+    """18a's strings, writing into `out`: the grade into cmafmux `vmux`
+    (fragments of HLS_FRAGMENT_FRAMES) teed into hlscmafsink `hls` and
+    dashsink2 `dash`; the flagship from appsrc `asrc` into cmafmux `amux`;
+    the CEA-608 pairs from appsrc `csrc` through cea608tojson and jsontovtt
+    into hlswebvttsink `vtt`."""
+    src, grade = grade_strings(w, h, n, cube)
+    frag = HLS_FRAGMENT_FRAMES * 10 ** 9 // 30
+    video = (f"{src} ! {grade} ! cmafmux name=vmux fragment-duration={frag} "
+             f"! tee name=t ! hlscmafsink name=hls location={out}/video_"
+             f"%05d.m4s init-location={out}/video_init.mp4 playlist-location="
+             f"{out}/video.m3u8 target-duration=1 ! t. ! dashsink2 name=dash "
+             f"mime-type=video/mp4 codecs=uncv mpd-location={out}/manifest.mpd"
+             f" init-location={out}/dash_init.mp4 segment-template={out}/"
+             f"dash_%05d.m4s target-duration=1")
+    caps = (f"audio/x-raw, format=F64LE, rate={RATE_192K}, channels=2, "
+            f"layout=interleaved")
+    audio = (f'appsrc name=asrc caps="{caps}" ! rsaudioecho name=echo '
+             f'delay=250000000 intensity={AUDIO_INTENSITY} feedback='
+             f'{AUDIO_FEEDBACK} ! audioloudnorm name=norm ! cmafmux name=amux '
+             f'fragment-duration={HLS_AUDIO_FRAGMENT}')
+    captions = ('appsrc name=csrc caps="closedcaption/x-cea-608, format=raw" '
+                '! cea608tojson name=cj ! jsontovtt name=jv default_duration='
+                f'1000000000 ! hlswebvttsink name=vtt target_duration=1 '
+                f'location={out}/subs_%05d.vtt playlist_location={out}/'
+                f'subs.m3u8')
+    return video, audio, captions
+
+
+def hls_grade(gstpu_torch, device: str, w: int, h: int, n: int, cube: Path,
+              out: Path) -> dict:
+    """18a on `device`: hls_strings in one pipeline, cmafmux `amux` and a
+    third branch of the tee feeding an hlsmultivariantsink `mv` (request
+    pads made with their settings, which a launch string cannot give: the
+    video variant `hi.m3u8` and the audio rendition `audio.m3u8`), then
+    HLS_AUDIO_SECONDS of edge_signal into `asrc` in 100 ms blocks and
+    HLS_CAPTIONS as pop-on CEA-608 a second apart into `csrc`, driven
+    until all four sinks saw EOS. The pipeline (in NULL), the wall
+    seconds and every file written, by name."""
+    gstpu_torch.init(device=device)
+    make = importlib.import_module(
+        f"{gstpu_torch.__name__}.core.registry").make
+    encoder = importlib.import_module(
+        f"{gstpu_torch.__name__}.codecs.cea608").Cea608Encoder
+    out.mkdir(parents=True)
+    video, audio, captions = hls_strings(w, h, n, cube, out)
+    p = gstpu_torch.parse_launch(video)
+    gstpu_torch.parse_launch(audio, pipeline=p)
+    gstpu_torch.parse_launch(captions, pipeline=p)
+    mv = make("hlsmultivariantsink", "mv",
+              playlist_location=str(out / "master.m3u8"), target_duration=1)
+    p.add(mv)
+    p.get_by_name("t").request_pad().link(mv.request_pad_with_settings(
+        variant={"uri": "hi.m3u8", "bandwidth": w * h * 4 * 8 * 30,
+                 "codecs": "uncv"}))
+    p.get_by_name("amux").static_pad("src").link(mv.request_pad_with_settings(
+        rendition={"media_type": "audio", "uri": "audio.m3u8",
+                   "group_id": "aud", "name": "Flagship", "default": True,
+                   "autoselect": True}))
+
+    def feed(p) -> None:
+        x = edge_signal(HLS_AUDIO_SECONDS, RATE_192K).astype(np.float64) \
+            / 32768.0
+        asrc, block = p.get_by_name("asrc"), RATE_192K // 10
+        for i, off in enumerate(range(0, len(x), block)):
+            asrc.push_buffer(gstpu_torch.Buffer(
+                x[off:off + block].copy(), pts=i * 100_000_000,
+                duration=100_000_000))
+        asrc.end_of_stream()
+        csrc = p.get_by_name("csrc")
+        for k, text in enumerate(HLS_CAPTIONS):
+            for i, pair in enumerate(encoder().encode_popon(text)):
+                csrc.push_buffer(gstpu_torch.Buffer(
+                    pair, pts=k * 10 ** 9 + i * 33_000_000))
+        csrc.end_of_stream()
+
+    dt = run_to_eos(gstpu_torch, device, p, ("hls", "dash", "mv", "vtt"),
+                    feed)
+    p.set_state(gstpu_torch.State.NULL)
+    files = {f.name: f.read_bytes() for f in sorted(out.iterdir())}
+    return {"pipe": p, "seconds": dt, "files": files}
+
+
+def hls_compare(card: dict, cpu: dict) -> dict:
+    """18a's gate on two runs' files: the same names, each byte for byte,
+    but the audio rendition's media segments, whose boxes but mdat must be
+    byte for byte and whose F64 samples (the flagship's, as in 13a) within
+    EDGE_TOL. The names that fail, the segments held to the tolerance, the
+    samples' max |err| and their differing bytes."""
+    from gstpu_torch.mux.boxes import parse_boxes
+    bad = sorted(set(card) ^ set(cpu))
+    tolerated, err, differ = [], 0.0, 0
+    for name in sorted(set(card) & set(cpu)):
+        a, b = card[name], cpu[name]
+        if a == b:
+            continue
+        ba, bb = parse_boxes(a), parse_boxes(b)
+        if not (name.startswith("audio_") and name.endswith(".m4s")) \
+                or [x.fourcc for x in ba] != [x.fourcc for x in bb] \
+                or any(x.data != y.data for x, y in zip(ba, bb)
+                       if x.fourcc != "mdat"):
+            bad.append(name)
+            continue
+        tolerated.append(name)
+        for x, y in zip(ba, bb):
+            if x.fourcc == "mdat":
+                ga, gb = (np.frombuffer(v.data, "<f8") for v in (x, y))
+                err = max(err, float(np.abs(ga - gb).max()))
+                differ += int(np.count_nonzero(
+                    np.frombuffer(x.data, np.uint8)
+                    != np.frombuffer(y.data, np.uint8)))
+    return {"bad": bad, "tolerated": tolerated, "max_abs_err": err,
+            "bytes_differ": differ}
+
+
+def flac_string(head: str, dst: Path) -> str:
+    """13a's string behind `head`, the source of the FLAC file's bytes."""
+    return (f"{head} ! claxondec name=dec ! audioconvert name=conv ! "
+            f"audio/x-raw, format=F64LE ! audioresample name=res ! "
+            f"audio/x-raw, rate={RATE_192K} ! rsaudioecho name=echo "
+            f"delay=250000000 intensity={AUDIO_INTENSITY} feedback="
+            f"{AUDIO_FEEDBACK} ! audioloudnorm name=norm ! ebur128level ! "
+            f"isomp4mux ! filesink location={dst}")
+
+
+class Served:
+    """`root` served over HTTP on 127.0.0.1 (port 0) from a thread of a
+    ThreadingHTTPServer, shut down on leaving the `with` block; `url` is
+    its address."""
+
+    def __init__(self, root: Path):
+        import http.server
+
+        class Files(http.server.SimpleHTTPRequestHandler):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, directory=str(root), **kw)
+
+            def log_message(self, *args) -> None:
+                pass
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Files)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+
+    def __enter__(self):
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(10)
+
+
+def http_clip(gstpu_torch, device: str, which: str, url: str,
+              clip: Path) -> tuple:
+    """18b's supervisors on `device` into the flagship: `which` is
+    "fallbacksrc" (`fallbacksrc uri=<url>`) or "uriplaylistbin" (over the
+    http item `url` and the file item `clip`). The appsink's buffers,
+    the wall seconds and the pipeline (in NULL)."""
+    tail = (f"audioconvert name=conv ! audio/x-raw, format=F64LE ! "
+            f"audioresample name=res ! audio/x-raw, rate={RATE_192K} ! "
+            f"rsaudioecho name=echo delay=250000000 intensity="
+            f"{AUDIO_INTENSITY} feedback={AUDIO_FEEDBACK} ! audioloudnorm "
+            f"name=norm ! appsink name=out")
+    if which == "fallbacksrc":
+        head, build = f"fallbacksrc uri={url} ! claxondec name=dec", None
+    else:
+        head = "uriplaylistbin name=pl"
+
+        def build(p) -> None:
+            p.get_by_name("pl").set_property("uris", [url, f"file://{clip}"])
+    p, dt, got, _ = run_string(gstpu_torch, device, f"{head} ! {tail}",
+                               ("out",), build=build)
+    return got["out"], dt, p
+
+
+def quic_ready(sink) -> bool:
+    """The QUIC (or WebTransport) sink's connection (or session) is up."""
+    ep = sink._ep
+    return ep.wt.session_ready if hasattr(ep, "wt") else ep.conn.connected
+
+
+def quic_settled(sink) -> bool:
+    """Nothing of the sink's connection waits to be sent or acked."""
+    return not any(sp.unacked or sp.pending
+                   for sp in sink._ep.conn._spaces.values())
+
+
+def pump_until(cond, sink, r, what: str) -> None:
+    """Pump the sink's endpoint and drain the receiver until `cond()`."""
+    deadline = time.monotonic() + 120
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"18c: {what}")
+        sink._ep.pump()
+        drain(r)
+        time.sleep(0.0005)
+
+
+def quic_pair(gstpu_torch, device: str, send: str, recv: str, taps=(),
+              feed=None, build=None, build_send=None,
+              server_sink: bool = False) -> dict:
+    """The sending string `send` (its QUIC sink `quic`) and the receiving
+    one `recv` (its QUIC source `src`, every appsink named `out*` in it
+    or added by `build(r)`), on 127.0.0.1, `build_send(s)` adding to the
+    sending pipeline and `feed(s)` pushing its appsrc input. By default
+    the source is the server: `recv` is set PLAYING (binding port 0),
+    `send` gets its port in `{port}` and pins its certificate. With
+    `server_sink` (the WebTransport pair) the sink binds and the source
+    connects. A probe on the sink's pad connects both ends before the
+    first buffer, drives the receiver every RTP_PACE buffers, and at EOS
+    pumps both until nothing waits to be sent or acked; after the
+    sender's end its connection is closed, which ends the receiver's
+    stream. The pipelines (in NULL),
+    the sender's wall seconds, the buffers by tap, every `out*` appsink's
+    buffers and the sink's QUIC counts."""
+    gstpu_torch.init(device=device)
+    State = gstpu_torch.State
+    if server_sink:
+        s = gstpu_torch.parse_launch(send)
+        if build_send is not None:
+            build_send(s)
+        s.set_state(State.READY)
+        sink = s.get_by_name("quic")
+        r = gstpu_torch.parse_launch(recv.format(port=sink.bound_port))
+        r.get_by_name("src").certificate_fingerprint = sink.local_fingerprint
+        if build is not None:
+            build(r)
+        r.set_state(State.PLAYING)
+    else:
+        r = gstpu_torch.parse_launch(recv)
+        if build is not None:
+            build(r)
+        r.set_state(State.PLAYING)
+        src = r.get_by_name("src")
+        s = gstpu_torch.parse_launch(send.format(port=src.bound_port))
+        if build_send is not None:
+            build_send(s)
+        sink = s.get_by_name("quic")
+        sink.certificate_fingerprint = src.local_fingerprint
+    pipes = {"send": s, "recv": r}
+    recorded = {t: record_buffers(pipes[t[0]].get_by_name(t[1])
+                                  .static_pad(t[2])) for t in taps}
+    counts = {"sent": 0}
+
+    def pace(_, item):
+        if not hasattr(item, "to_bytes"):
+            if type(item).__name__ == "EosEvent":
+                pump_until(lambda: quic_settled(sink), sink, r,
+                           "packets in flight at EOS were never acked")
+            return None
+        if not quic_ready(sink):
+            pump_until(lambda: quic_ready(sink), sink, r,
+                       "the handshake did not complete")
+        counts["sent"] += 1
+        if counts["sent"] % RTP_PACE == 0:
+            drain(r)
+        return None
+    sink.static_pad("sink").add_probe(pace)
+    s.set_state(State.PLAYING)
+    conn = sink._ep.conn
+    lost = {"lost": 0, "ptos": 0}
+    on_lost, on_timeout = conn.cc.on_lost, conn.on_timeout
+
+    def count_lost(*args, **kw):
+        lost["lost"] += 1
+        return on_lost(*args, **kw)
+
+    def count_pto(*args, **kw):
+        lost["ptos"] += 1
+        return on_timeout(*args, **kw)
+    conn.cc.on_lost, conn.on_timeout = count_lost, count_pto
+    t0 = time.perf_counter()
+    if feed is not None:
+        feed(s)
+    s.run(timeout=600)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    packets = {k: sp.next_pn for k, sp in conn._spaces.items()}
+    s.set_state(State.NULL)
+    outs = [el for el in r.iterate_elements()
+            if el.name.startswith("out")]
+    deadline = time.monotonic() + 120
+    while not outs or not all(o.is_eos for o in outs):
+        if time.monotonic() > deadline:
+            raise TimeoutError("18c: the receiver's stream did not end")
+        drain(r)
+        time.sleep(0.0005)
+        outs = [el for el in r.iterate_elements()
+                if el.name.startswith("out")]
+    got = {o.name: o.pull_all() for o in outs}
+    r.set_state(State.NULL)
+    return {"pipes": pipes, "seconds": dt, "counts": counts,
+            "taps": recorded, "out": got,
+            "quic": {"packets": packets, **lost}}
+
+
+def roq_strings(w: int, h: int, n: int, cube: Path) -> tuple:
+    """18c's datagram leg: the grade into rtpvrawpay2 at QUIC_MTU,
+    quinnroqmux and quinnquicsink in datagram mode; quinnquicsrc (RoQ
+    caps) into quinnroqdemux, the RTP caps of 17b, rtpvrawdepay2 and an
+    appsink."""
+    src, grade = grade_strings(w, h, n, cube)
+    send = (f"{src} ! {grade} ! rtpvrawpay2 name=pay mtu={QUIC_MTU} "
+            f"ssrc={RTP_SSRC} seqnum-offset=0 timestamp-offset=0 ! "
+            f"quinnroqmux name=roq ! quinnquicsink name=quic "
+            f"use-datagram=true address=127.0.0.1 port={{port}}")
+    recv = (f'quinnquicsrc name=src address=127.0.0.1 port=0 caps='
+            f'"application/x-roq" ! quinnroqdemux name=roqd ! capsfilter '
+            f'caps="application/x-rtp, media=video, encoding-name=RAW, '
+            f'clock-rate=90000, payload=96, sampling=RGBA, width=(string){w}'
+            f', height=(string){h}, depth=(string)8" ! rtpvrawdepay2 '
+            f'name=depay ! appsink name=out sync=false')
+    return send, recv
+
+
+def roq_grade(gstpu_torch, device: str, w: int, h: int, n: int,
+              cube: Path) -> dict:
+    """18c's datagram leg on `device`: quic_pair's result for
+    roq_strings, with the frames received (bytes), the RTP sequence
+    numbers into the depayloader and those lost (as 17b's)."""
+    send, recv = roq_strings(w, h, n, cube)
+    res = quic_pair(gstpu_torch, device, send, recv,
+                    (("send", "pay", "src"), ("recv", "depay", "sink")))
+    pk = importlib.import_module(f"{gstpu_torch.__name__}.net.rtp.packet")
+    seqs = [pk.RtpPacket.parse(b.to_bytes()).seqnum
+            for b in res["taps"]["recv", "depay", "sink"]]
+    sent = len(res["taps"]["send", "pay", "src"])
+    res.update(frames=[b.to_bytes() for b in res["out"]["out"]],
+               seqnums=seqs, rtp_sent=sent, lost=sent - len(set(seqs)),
+               in_order=seqs == list(range(sent)))
+    return res
+
+
+def phone_rtp_string() -> str:
+    """17a's telephony leg up to its RTP payloader, without the FEC that
+    a reliable QUIC stream does not need: the flagship from appsrc `src`
+    into 8 kHz S16 mono A-law in 20 ms RTP packets (`pay`)."""
+    caps = (f"audio/x-raw, format=F64LE, rate={RATE_192K}, channels=2, "
+            f"layout=interleaved")
+    return (f'appsrc name=src caps="{caps}" ! rsaudioecho name=echo '
+            f'delay=250000000 intensity={AUDIO_INTENSITY} '
+            f'feedback={AUDIO_FEEDBACK} ! audioloudnorm name=norm ! '
+            f'audioresample name=res ! audio/x-raw, rate={PHONE_RATE} ! '
+            f'audioconvert name=conv ! audio/x-raw, format=S16LE, '
+            f'channels=1 ! alawenc name=ae ! rtppcmapay2 name=pay '
+            f'mtu={PHONE_MTU} ssrc={RTP_SSRC} seqnum-offset=0 '
+            f'timestamp-offset=0')
+
+
+def quic_streams(gstpu_torch, device: str, w: int, h: int, n: int,
+                 cube: Path, seconds: float) -> dict:
+    """18c's stream leg on `device`: phone_rtp_string and the grade's
+    rtpvrawpay2 (`vpay`, QUIC_MTU) linked into quinnquicmux (stream_0
+    and stream_1) ahead of quinnquicsink; quinnquicsrc into
+    quinnquicdemux, each pad it adds linked to an appsink `out_<pad>`.
+    quic_pair's result with the RTP packets each payloader sent (`phone`,
+    `video`) and each demuxed stream's packets (`streams`)."""
+    src, grade = grade_strings(w, h, n, cube)
+    make = importlib.import_module(
+        f"{gstpu_torch.__name__}.core.registry").make
+    send = "quinnquicmux name=mux ! quinnquicsink name=quic " \
+           "address=127.0.0.1 port={port}"
+    recv = "quinnquicsrc name=src address=127.0.0.1 port=0 ! " \
+           "quinnquicdemux name=demux"
+    x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+
+    def build(r) -> None:
+        def added(_, pad) -> None:
+            out = make("appsink", f"out_{pad.name}", sync=False)
+            r.add(out)
+            out.set_state(gstpu_torch.State.PLAYING)
+            pad.link(out.static_pad("sink"))
+        r.get_by_name("demux").connect("pad-added", added)
+
+    def build_send(s) -> None:
+        gstpu_torch.parse_launch(phone_rtp_string(), pipeline=s)
+        gstpu_torch.parse_launch(
+            f"{src} ! {grade} ! rtpvrawpay2 name=vpay mtu={QUIC_MTU} "
+            f"ssrc={RTP_SSRC + 1} seqnum-offset=0 timestamp-offset=0",
+            pipeline=s)
+        s.get_by_name("pay").link(s.get_by_name("mux"))
+        s.get_by_name("vpay").link(s.get_by_name("mux"))
+
+    res = quic_pair(gstpu_torch, device, send, recv,
+                    (("send", "pay", "src"), ("send", "vpay", "src")),
+                    feed_blocks(gstpu_torch, x, RATE_192K), build, build_send)
+    res.update(
+        phone=[b.to_bytes() for b in res["taps"]["send", "pay", "src"]],
+        video=[b.to_bytes() for b in res["taps"]["send", "vpay", "src"]],
+        streams={k: [b.to_bytes() for b in v] for k, v in res["out"].items()})
+    return res
+
+
+def wt_phone(gstpu_torch, device: str, seconds: float) -> dict:
+    """18c's WebTransport leg on `device`: phone_rtp_string into
+    quinnwtserversink (binding port 0, the server), read by
+    quinnwtclientsrc into rtppcmadepay2, alawdec and an appsink. quic_pair's
+    result with the RTP packets sent (`phone`) and the samples decoded."""
+    send = f"{phone_rtp_string()} ! quinnwtserversink name=quic " \
+           f"address=127.0.0.1 port=0"
+    recv = ("quinnwtclientsrc name=src address=127.0.0.1 port={port} "
+            f'caps="application/x-rtp, media=audio, clock-rate={PHONE_RATE}, '
+            f'encoding-name=PCMA, payload=8" ! rtppcmadepay2 name=depay ! '
+            f'alawdec name=ad ! appsink name=out sync=false')
+    x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+    res = quic_pair(gstpu_torch, device, send, recv, (("send", "pay", "src"),),
+                    feed_blocks(gstpu_torch, x, RATE_192K), server_sink=True)
+    res.update(phone=[b.to_bytes() for b in res["taps"]["send", "pay", "src"]],
+               samples=b"".join(b.to_bytes() for b in res["out"]["out"]))
+    return res
+
+
+def hls_phase(gstpu_torch, smi, tmp: Path, cube: Path, kernels) -> dict:
+    """18a. hls_grade at BASELINE config 4's 1080p on the card and on the
+    CPU: the files byte for byte (the audio segments' samples within
+    EDGE_TOL), cmafmux reading each frame once for its sample and the
+    first once more (gstpu's cmafmux keeps the first frame of every
+    stream for the sample entries that need one), no sink reading one,
+    each kernel once a frame."""
+    w, h, n = EDGE_W, EDGE_H, HLS_FRAMES
+    a, tracer, calls, launches = traced(kernels, lambda: hls_grade(
+        gstpu_torch, "cuda", w, h, n, cube, tmp / "hls_card"))
+    cpu = hls_grade(gstpu_torch, "cpu", w, h, n, cube, tmp / "hls_cpu")
+    same = hls_compare(a["files"], cpu["files"])
+    files = a["files"]
+    p = a["pipe"]
+    echo_out = tracer.payload.get(p.get_by_name("echo").static_pad("src"))
+    segments = {k: sum(f.startswith(k + "_") and f.endswith(".m4s")
+                       for f in files) for k in ("video", "dash", "hi",
+                                                 "audio")}
+    master = files["master.m3u8"].decode()
+    r = {
+        "frames": n, "fps": n / a["seconds"], "cpu_wall_s": cpu["seconds"],
+        "files": len(files), "bytes": sum(map(len, files.values())),
+        "segments": segments,
+        "vtt_segments": sum(f.endswith(".vtt") for f in files),
+        "compare": same, "launches": launches,
+        "array_calls": new_reads(calls, ("vmux", "t", "hls", "dash", "mv",
+                                         "asrc", "echo", "norm", "amux",
+                                         "csrc", "cj", "jv", "vtt")),
+        "vmux_reads_by_frame": [v for (el, _), v in sorted(
+            calls.counts.items(), key=lambda x: (str(x[0][0]), x[0][1]))
+            if el == "vmux"],
+        "downloads": dict(calls.tensor_calls),
+        "host_ms_a_frame": own_ms(tracer, p, ["vmux", "hls", "dash"], n),
+        "host_ms_per_s": own_ms(tracer, p, ["echo", "norm", "amux"],
+                                HLS_AUDIO_SECONDS),
+        "host_ms_mv_both_pads": own_ms(tracer, p, ["mv"], 1)["mv"],
+        "host_ms_vtt": own_ms(tracer, p, ["vtt"], 1)["vtt"],
+        "echo_output": echo_out}
+    log(f"[dist] 18a: {n} frames of {w}x{h} through the grade into cmafmux "
+        f"({HLS_FRAGMENT_FRAMES}-frame fragments) teed into hlscmafsink, "
+        f"dashsink2 and hlsmultivariantsink, {HLS_AUDIO_SECONDS} s of the "
+        f"flagship into a second cmafmux as its audio rendition, "
+        f"{len(HLS_CAPTIONS)} captions as WebVTT: {r['files']} files, "
+        f"{r['bytes']} B, segments {segments}, {r['vtt_segments']} WebVTT; "
+        f"against the CPU run's: {same}; Buffer.array calls "
+        f"{r['array_calls']} (cmafmux's by frame "
+        f"{r['vmux_reads_by_frame']}), downloads {r['downloads']}; launches "
+        f"{launches}; {r['fps']:.3f} fps with the audio and captions in the "
+        f"same run (tracer on), {cpu['seconds']:.3f} s on the CPU; host ms "
+        f"a frame {r['host_ms_a_frame']}, per second of audio "
+        f"{r['host_ms_per_s']}, hlsmultivariantsink "
+        f"{r['host_ms_mv_both_pads']:.2f} ms in all, hlswebvttsink "
+        f"{r['host_ms_vtt']:.2f}; the echo's "
+        f"output: {echo_out}  [{smi}]")
+    want = n // HLS_FRAGMENT_FRAMES
+    if same["bad"] or same["max_abs_err"] > EDGE_TOL \
+            or segments["video"] != want or segments["dash"] != want \
+            or segments["hi"] != want or not segments["audio"] \
+            or not r["vtt_segments"] \
+            or "#EXT-X-MEDIA:TYPE=AUDIO" not in master \
+            or "#EXT-X-STREAM-INF:" not in master \
+            or not all(files[f].rstrip().endswith(b"#EXT-X-ENDLIST")
+                       for f in ("video.m3u8", "hi.m3u8", "audio.m3u8",
+                                 "subs.m3u8")) \
+            or b'type="static"' not in files["manifest.mpd"] \
+            or r["vmux_reads_by_frame"] != [2] + [1] * (n - 1) \
+            or any(x in r["array_calls"] for x in ("hls", "dash", "mv",
+                                                   "vtt")) \
+            or any(v != n for v in launches.values()) \
+            or echo_out != "tensor on cuda":
+        raise AssertionError(f"18a: {r}")
+    return r
+
+
+def http_phase(gstpu_torch, smi, tmp: Path, edge: Path | None) -> dict:
+    """18b. 13a's FLAC served over HTTP into 13a's string on the card
+    through reqwesthttpsrc: the MP4 byte for byte 13a's filesrc MP4 (from
+    phase 13's directory `edge`; without it, that string is run here);
+    each source alone into fakesink; then fallbacksrc and uriplaylistbin
+    on HTTP_CLIP_SECONDS clips into the flagship on the card and the CPU,
+    the samples within EDGE_TOL."""
+    from gstpu_torch.codecs.flac import encode_verbatim
+    if edge is None or not (edge / "card.mp4").exists():
+        edge = tmp / "edge"
+        edge.mkdir()
+        (edge / "in.flac").write_bytes(encode_verbatim(
+            edge_signal(EDGE_SECONDS, EDGE_RATE), EDGE_RATE))
+        run_string(gstpu_torch, "cuda", flac_string(
+            f"filesrc location={edge / 'in.flac'}", edge / "card.mp4"))
+    served = tmp / "served"
+    served.mkdir()
+    shutil.copy(edge / "in.flac", served / "in.flac")
+    clip = served / "clip.flac"
+    clip.write_bytes(encode_verbatim(edge_signal(HTTP_CLIP_SECONDS,
+                                                 EDGE_RATE), EDGE_RATE))
+    res = {}
+    with Served(served) as srv:
+        url = f"{srv.url}/in.flac"
+        holder = {}
+
+        def card_run():
+            holder["p"], holder["dt"], _, _ = run_string(
+                gstpu_torch, "cuda", flac_string(
+                    f"reqwesthttpsrc location={url}", tmp / "http.mp4"))
+        _, tracer, calls, _ = traced([], card_run)
+        p = holder["p"]
+        own = own_ms(tracer, p, ["dec", "conv", "res", "echo", "norm"],
+                     EDGE_SECONDS)
+        echo_out = tracer.payload.get(p.get_by_name("echo")
+                                      .static_pad("src"))
+        alone = {}
+        for name, head in (("reqwesthttpsrc", f"reqwesthttpsrc "
+                            f"location={url}"),
+                           ("filesrc", f"filesrc location={served}/in.flac")):
+            alone[name] = statistics.median(
+                run_string(gstpu_torch, "cuda", f"{head} ! fakesink")[1]
+                for _ in range(3)) * 1e3 / EDGE_SECONDS
+        equal = (tmp / "http.mp4").read_bytes() \
+            == (edge / "card.mp4").read_bytes()
+        r = res["flac"] = {
+            "seconds_of_audio": EDGE_SECONDS, "wall_s": holder["dt"],
+            "equal_to_filesrc_mp4": equal, "host_ms_per_s": own,
+            "source_alone_host_ms_per_s": alone, "echo_output": echo_out,
+            "array_calls": new_reads(calls, ("dec", "conv", "res", "echo",
+                                             "norm"))}
+        log(f"[dist] 18b: 13a's {EDGE_SECONDS} s FLAC over HTTP through "
+            f"reqwesthttpsrc into 13a's string on the card: the MP4 "
+            f"{'equal to' if equal else 'DIFFERS FROM'} 13a's filesrc MP4; "
+            f"{holder['dt']:.3f} s (tracer on); host ms per second of "
+            f"audio by element {own}; each source alone into fakesink "
+            f"(median of 3) {alone}; Buffer.array calls {r['array_calls']}; "
+            f"the echo's output: {echo_out}  [{smi}]")
+        if not equal or echo_out != "tensor on cuda":
+            raise AssertionError(f"18b: {r}")
+
+        for name, seconds in (("fallbacksrc", HTTP_CLIP_SECONDS),
+                              ("uriplaylistbin", 2 * HTTP_CLIP_SECONDS)):
+            card, tracer, calls, _ = traced([], lambda: http_clip(
+                gstpu_torch, "cuda", name, f"{srv.url}/clip.flac", clip))
+            cpu = http_clip(gstpu_torch, "cpu", name, f"{srv.url}/clip.flac",
+                            clip)
+            got, want = (np.concatenate([np.frombuffer(b.to_bytes(), "<f8")
+                                         for b in x[0]]) for x in (card, cpu))
+            err = float(np.abs(got - want).max()) \
+                if got.shape == want.shape else float("inf")
+            r = res[name] = {
+                "samples": got.size // 2, "cpu_samples": want.size // 2,
+                "max_abs_err": err, "wall_s": card[1], "cpu_wall_s": cpu[1],
+                "host_ms_per_s": own_ms(tracer, card[2], ["conv", "res",
+                                                          "echo", "norm"],
+                                        seconds),
+                "array_calls": new_reads(calls, ("conv", "res", "echo",
+                                                 "norm", "out")),
+                "echo_output": tracer.payload.get(
+                    card[2].get_by_name("echo").static_pad("src"))}
+            log(f"[dist] 18b: {name} over HTTP into the flagship on the "
+                f"card: {r['samples']} samples at {RATE_192K} Hz, max |err| "
+                f"{err:.3e} against the CPU's {r['cpu_samples']} (gate "
+                f"{EDGE_TOL}); {r['wall_s']:.3f} s (tracer on), the CPU "
+                f"{r['cpu_wall_s']:.3f} s; host ms per second of audio "
+                f"{r['host_ms_per_s']}; Buffer.array calls "
+                f"{r['array_calls']}; the echo's output: {r['echo_output']}"
+                f"  [{smi}]")
+            if not np.isfinite(got).all() or err > EDGE_TOL or not got.size \
+                    or r["echo_output"] != "tensor on cuda":
+                raise AssertionError(f"18b: {name}: {r}")
+    n = round(HTTP_CLIP_SECONDS * EDGE_RATE)
+    if res["uriplaylistbin"]["samples"] - res["fallbacksrc"]["samples"] \
+            != 4 * n:
+        raise AssertionError(f"18b: uriplaylistbin did not play both items: "
+                             f"{res}")
+    return res
+
+
+def quic_phase(gstpu_torch, smi, cube: Path, kernels) -> dict:
+    """18c. The grade as RoQ datagrams over QUIC (0 RTP packets lost, the
+    frames the CPU run's), the telephony and grade RTP on two QUIC
+    streams (each stream's packets those its payloader sent, and the CPU
+    run's), the telephony RTP over WebTransport (the samples the CPU
+    run's); QUIC packets a frame, losses and probes, host ms by element,
+    each kernel's launches."""
+    w, h = EDGE_W, EDGE_H
+    res, launches = {}, {k.name: 0 for k in kernels}
+
+    a, tracer, calls, n = traced(kernels, lambda: roq_grade(
+        gstpu_torch, "cuda", w, h, QUIC_FRAMES, cube))
+    cpu = roq_grade(gstpu_torch, "cpu", w, h, QUIC_FRAMES, cube)
+    r = res["roq"] = {
+        "frames": len(a["frames"]), "fps": QUIC_FRAMES / a["seconds"],
+        "cpu_wall_s": cpu["seconds"], "rtp_a_frame": a["rtp_sent"]
+        / QUIC_FRAMES, "quic_packets": a["quic"]["packets"],
+        "quic_a_frame": a["quic"]["packets"][2] / QUIC_FRAMES,
+        "lost_declared": a["quic"]["lost"], "probes": a["quic"]["ptos"],
+        "lost": a["lost"], "in_order": a["in_order"],
+        "equal_to_cpu": a["frames"] == cpu["frames"], "launches": n,
+        "array_calls": new_reads(calls, ("pay", "roq", "quic", "src",
+                                         "roqd", "depay", "out")),
+        "downloads": dict(calls.tensor_calls),
+        "host_ms_a_frame": {
+            "send": own_ms(tracer, a["pipes"]["send"], ["pay", "roq",
+                                                        "quic"], QUIC_FRAMES),
+            "recv": own_ms(tracer, a["pipes"]["recv"], ["roqd", "depay",
+                                                        "out"], QUIC_FRAMES)}}
+    log(f"[dist] 18c: {r['frames']} frames of {w}x{h} through the grade into "
+        f"rtpvrawpay2 mtu={QUIC_MTU}, quinnroqmux and quinnquicsink "
+        f"use-datagram=true: {r['rtp_a_frame']} RTP packets and "
+        f"{r['quic_a_frame']} QUIC packets a frame (by space "
+        f"{r['quic_packets']}), {r['lost_declared']} declared lost, "
+        f"{r['probes']} probes; {r['lost']} RTP packets lost, in order: "
+        f"{r['in_order']}; frames "
+        f"{'equal to' if r['equal_to_cpu'] else 'DIFFER FROM'} "
+        f"the CPU run's; launches {n}; Buffer.array calls "
+        f"{r['array_calls']}, downloads {r['downloads']}; {r['fps']:.3f} fps "
+        f"with the receiver driven every {RTP_PACE} buffers on the same "
+        f"thread (tracer on), {cpu['seconds']:.3f} s on the CPU; host ms a "
+        f"frame {r['host_ms_a_frame']}  [{smi}]")
+    if r["frames"] != QUIC_FRAMES or r["lost"] or not r["in_order"] \
+            or not r["equal_to_cpu"] or r["array_calls"] != {
+                "pay": QUIC_FRAMES} \
+            or any(v != QUIC_FRAMES for v in n.values()):
+        raise AssertionError(f"18c: {r}")
+    for k in kernels:
+        launches[k.name] += n[k.name]
+
+    b, tracer, calls, n = traced(kernels, lambda: quic_streams(
+        gstpu_torch, "cuda", w, h, QUIC_STREAM_FRAMES, cube, PHONE_SECONDS))
+    cpu = quic_streams(gstpu_torch, "cpu", w, h, QUIC_STREAM_FRAMES, cube,
+                       PHONE_SECONDS)
+    got = list(b["streams"].values())
+    echo_out = tracer.payload.get(b["pipes"]["send"].get_by_name("echo")
+                                  .static_pad("src"))
+    r = res["streams"] = {
+        "frames": QUIC_STREAM_FRAMES, "seconds_of_audio": PHONE_SECONDS,
+        "wall_s": b["seconds"], "cpu_wall_s": cpu["seconds"],
+        "streams": {k: len(v) for k, v in b["streams"].items()},
+        "quic_packets": b["quic"]["packets"],
+        "lost_declared": b["quic"]["lost"], "probes": b["quic"]["ptos"],
+        "phone_as_sent": b["phone"] in got,
+        "video_as_sent": b["video"] in got,
+        "phone_equal_to_cpu": b["phone"] == cpu["phone"],
+        "video_equal_to_cpu": b["video"] == cpu["video"], "launches": n,
+        "array_calls": new_reads(calls, ("pay", "vpay", "mux", "quic", "src",
+                                         "demux")),
+        "host_ms_per_s": own_ms(tracer, b["pipes"]["send"],
+                                ["echo", "norm", "res", "conv", "ae", "pay"],
+                                PHONE_SECONDS),
+        "host_ms_a_frame": own_ms(tracer, b["pipes"]["send"],
+                                  ["vpay", "mux", "quic"],
+                                  QUIC_STREAM_FRAMES),
+        "echo_output": echo_out}
+    log(f"[dist] 18c: {PHONE_SECONDS} s of the telephony leg's RTP and "
+        f"the RTP of {QUIC_STREAM_FRAMES} graded frame(s) through "
+        f"quinnquicmux and "
+        f"quinnquicsink on two QUIC streams into quinnquicsrc and "
+        f"quinnquicdemux: packets by stream {r['streams']}, QUIC packets by "
+        f"space {r['quic_packets']}, {r['lost_declared']} declared lost, "
+        f"{r['probes']} probes; each stream what its payloader sent: "
+        f"telephony {r['phone_as_sent']}, video {r['video_as_sent']}; the "
+        f"CPU run's: telephony {r['phone_equal_to_cpu']}, video "
+        f"{r['video_equal_to_cpu']}; launches {n}; Buffer.array calls "
+        f"{r['array_calls']}; {b['seconds']:.3f} s (tracer on), "
+        f"{cpu['seconds']:.3f} s on the CPU; host ms per second of audio "
+        f"{r['host_ms_per_s']}, a frame {r['host_ms_a_frame']}; the echo's "
+        f"output: {echo_out}  [{smi}]")
+    if len(b["streams"]) != 2 or not all(
+            r[k] for k in ("phone_as_sent", "video_as_sent",
+                           "phone_equal_to_cpu", "video_equal_to_cpu")) \
+            or any(v != QUIC_STREAM_FRAMES for v in n.values()) \
+            or r["array_calls"].get("vpay") != QUIC_STREAM_FRAMES \
+            or echo_out != "tensor on cuda":
+        raise AssertionError(f"18c: {r}")
+    for k in kernels:
+        launches[k.name] += n[k.name]
+
+    c, tracer, calls, _ = traced(kernels, lambda: wt_phone(
+        gstpu_torch, "cuda", PHONE_SECONDS))
+    echo_out = tracer.payload.get(c["pipes"]["send"].get_by_name("echo")
+                                  .static_pad("src"))
+    cpu = wt_phone(gstpu_torch, "cpu", PHONE_SECONDS)
+    r = res["webtransport"] = {
+        "seconds_of_audio": PHONE_SECONDS, "wall_s": c["seconds"],
+        "cpu_wall_s": cpu["seconds"], "rtp_packets": len(c["phone"]),
+        "quic_packets": c["quic"]["packets"],
+        "lost_declared": c["quic"]["lost"], "probes": c["quic"]["ptos"],
+        "samples": len(c["samples"]) // 2,
+        "equal_to_cpu": c["samples"] == cpu["samples"],
+        "array_calls": new_reads(calls, ("echo", "norm", "res", "conv", "ae",
+                                         "pay", "quic", "src", "depay", "ad",
+                                         "out")),
+        "echo_output": echo_out,
+        "host_ms_per_s": {
+            "send": own_ms(tracer, c["pipes"]["send"], ["pay", "quic"],
+                           PHONE_SECONDS),
+            "recv": own_ms(tracer, c["pipes"]["recv"], ["depay", "ad",
+                                                        "out"],
+                           PHONE_SECONDS)}}
+    log(f"[dist] 18c: {PHONE_SECONDS} s of the telephony leg's RTP, "
+        f"{r['rtp_packets']} packets, through quinnwtserversink into "
+        f"quinnwtclientsrc, rtppcmadepay2 and alawdec: {r['samples']} "
+        f"samples {'equal to' if r['equal_to_cpu'] else 'DIFFERENT FROM'} "
+        f"the CPU run's; QUIC packets by space {r['quic_packets']}, "
+        f"{r['lost_declared']} declared lost, {r['probes']} probes; "
+        f"{c['seconds']:.3f} s (tracer on), {cpu['seconds']:.3f} s on the "
+        f"CPU; host ms per second of audio {r['host_ms_per_s']}; "
+        f"Buffer.array calls {r['array_calls']}; the echo's output: "
+        f"{echo_out}  [{smi}]")
+    if r["samples"] != round(PHONE_SECONDS * PHONE_RATE) \
+            or not r["equal_to_cpu"] or echo_out != "tensor on cuda":
+        raise AssertionError(f"18c: {r}")
+    res["launches"] = launches
+    return res
+
+
+def distribution_phase(gstpu_torch, smi, tmp: Path, kernels,
+                       edge: Path | None = None) -> dict:
+    """18. Queue D item 5's elements between the card's chains and their
+    audience, all on 127.0.0.1: (a) HLS, DASH and WebVTT segments of the
+    grade and the flagship's audio; (b) the FLAC over HTTP; (c) RTP over
+    QUIC and WebTransport, only where `cryptography` imports. Each
+    kernel's launches in a and c."""
+    cube = tmp / "dist.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    res = {"hls": hls_phase(gstpu_torch, smi, tmp, cube, kernels),
+           "http": http_phase(gstpu_torch, smi, tmp, edge)}
+    launches = dict(res["hls"]["launches"])
+    not_run = dict(NOT_ON_THE_CARD_18)
+    if importlib.util.find_spec("cryptography") is None:
+        not_run["quinnquicsink, quinnquicsrc, quinnquicmux, "
+                "quinnquicdemux, quinnwtserversink, quinnwtclientsrc, "
+                "quinnroqmux, quinnroqdemux (18c)"] = (
+            "the `cryptography` package does not import on this machine "
+            "(its TLS 1.3 and packet protection need it); "
+            "tests/test_torch_quic.py holds them against gstpu's")
+    else:
+        res["quic"] = quic_phase(gstpu_torch, smi, cube, kernels)
+        for k, v in res["quic"]["launches"].items():
+            launches[k] += v
+    res["not_on_the_card"] = not_run
+    for name, why in not_run.items():
+        log(f"[dist] not run on the card: {name}: {why}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -5575,12 +6417,13 @@ def main() -> int:
             parallel["trace"]["kernels"][row["name"]]["launches"]
     # 13. the host edge: files through the device chains into files
     t13 = time.monotonic()
-    with tempfile.TemporaryDirectory() as tmp:
-        edge = {"audio": edge_audio_phase(gstpu_torch, dev, smi, Path(tmp)),
-                "video": edge_video_phase(gstpu_torch, dev, smi, Path(tmp),
-                                          kernels),
-                "containers": edge_container_phase(gstpu_torch, smi,
-                                                   Path(tmp))}
+    # kept until phase 18, which holds its HTTP MP4 against 13a's
+    edge_dir = tempfile.TemporaryDirectory()
+    tmp = edge_dir.name
+    edge = {"audio": edge_audio_phase(gstpu_torch, dev, smi, Path(tmp)),
+            "video": edge_video_phase(gstpu_torch, dev, smi, Path(tmp),
+                                      kernels),
+            "containers": edge_container_phase(gstpu_torch, smi, Path(tmp))}
     for row in rows:
         row["launches_file"] = edge["video"]["launches"][row["name"]]
     # 14. the host codecs and images behind the card's chains
@@ -5613,11 +6456,21 @@ def main() -> int:
         rtp = rtp_phase(gstpu_torch, smi, Path(tmp), kernels)
     for row in rows:
         row["launches_rtp"] = rtp["launches"][row["name"]]
+    # 18. the HLS/DASH sinks, the HTTP source and QUIC of Queue D item 5
+    # between the card's chains and their audience
+    t18 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist = distribution_phase(gstpu_torch, smi, Path(tmp), kernels,
+                                  Path(edge_dir.name))
+    edge_dir.cleanup()
+    for row in rows:
+        row["launches_distribution"] = dist["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
                                "11": t12 - t11, "12": t13 - t12,
                                "13": t14 - t13, "14": t15 - t14,
                                "15": t16 - t15, "16": t17 - t16,
-                               "17": time.monotonic() - t17})
+                               "17": t18 - t17,
+                               "18": time.monotonic() - t18})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -5634,6 +6487,7 @@ def main() -> int:
     log(json.dumps({"captions": captions}))
     log(json.dumps({"plumbing": plumbing}))
     log(json.dumps({"rtp": rtp}))
+    log(json.dumps({"distribution": dist}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -64,8 +64,13 @@ _MODULES = [
     "gstpu_torch.elements.net.udp",
     "gstpu_torch.elements.net.tcp",
     "gstpu_torch.elements.net.rtsp",
+    "gstpu_torch.elements.net.hls",
     "gstpu_torch.elements.net.mpegtslive",
     "gstpu_torch.elements.net.raptorq",
+    "gstpu_torch.elements.net.httpsrc",
+    "gstpu_torch.elements.net.quic",
+    "gstpu_torch.elements.net.icecast",
+    "gstpu_torch.elements.net.dash",
     "gstpu_torch.elements.net.gccbwe",
     "gstpu_torch.elements.net.onvif",
     # last: _alias reads the registry when it is imported

@@ -7,12 +7,11 @@ default, imagersdec vs imagedecoder...).  This module registers those
 exact names as aliases so gst-launch lines written for the reference
 work unchanged, and adds the remaining small utility elements
 (rssinesrc, rsrgb2gray, rsprogressbin, ts-input-selector,
-ts-clocksync, ts-rtpdtmfsrc).
+ts-clocksync, ts-rtpdtmfsrc, quinnroqmux/demux).
 
 The port's copy of gstpu/elements/generic/aliases.py, with the rows
-whose targets the port registers. gstpu's other rows wait for their
-targets (ROADMAP.md, Queue D): `quinnroqmux`/`quinnroqdemux` for the
-RoQ framing (item 5); `llamacpp-texttransform` for the LLM text
+whose targets the port registers. gstpu's other row waits for its
+target (ROADMAP.md, Queue D): `llamacpp-texttransform` for the LLM text
 elements (item 7).
 """
 
@@ -241,6 +240,62 @@ class TsInputSelector(Element):
         if pad.name != self.active_pad:
             return True
         return self.srcpad.push_event(ev)
+
+
+_RTP_CAPS = Caps.new("application/x-rtp")
+
+
+@register_element("quinnroqmux", Rank.NONE)
+class QuinnRoqMux(BaseTransform):
+    """RTP -> RoQ datagram framing (flow-id varint prefix; the QUIC
+    transport itself is the env boundary — see gstpu/net/roq.py)."""
+
+    PAD_TEMPLATES = [
+        PadTemplate("sink", PadDirection.SINK, PadPresence.ALWAYS,
+                    _RTP_CAPS.copy()),
+        PadTemplate("src", PadDirection.SRC, PadPresence.ALWAYS,
+                    Caps.new("application/x-roq")),
+    ]
+
+    flow_id = Property(int, default=0, minimum=0,
+                       mutable=Mutability.READY)
+
+    def transform_caps(self, direction, caps, filter):
+        out = (Caps.new("application/x-roq")
+               if direction is PadDirection.SINK
+               else _RTP_CAPS).copy()
+        if filter is not None:
+            out = filter.intersect(out)
+        return out
+
+    def transform(self, buf: Buffer) -> Buffer:
+        from gstpu_torch.net.roq import mux_datagram
+        return Buffer(mux_datagram(self.flow_id, buf.to_bytes()),
+                      pts=buf.pts, duration=buf.duration)
+
+
+@register_element("quinnroqdemux", Rank.NONE)
+class QuinnRoqDemux(BaseTransform):
+    PAD_TEMPLATES = [
+        PadTemplate("sink", PadDirection.SINK, PadPresence.ALWAYS,
+                    Caps.new("application/x-roq")),
+        PadTemplate("src", PadDirection.SRC, PadPresence.ALWAYS,
+                    _RTP_CAPS.copy()),
+    ]
+
+    def transform_caps(self, direction, caps, filter):
+        out = (_RTP_CAPS if direction is PadDirection.SINK
+               else Caps.new("application/x-roq")).copy()
+        if filter is not None:
+            out = filter.intersect(out)
+        return out
+
+    def transform(self, buf: Buffer) -> Buffer:
+        from gstpu_torch.net.roq import demux_datagram
+        flow, pkt = demux_datagram(buf.to_bytes())
+        out = Buffer(pkt, pts=buf.pts, duration=buf.duration)
+        out.offset = flow
+        return out
 
 
 @register_element("ts-rtpdtmfsrc", Rank.NONE)

@@ -13,7 +13,7 @@ factory strings parsed like gst-launch fragments (e.g.
 "audiotestsrc freq=440").
 
 The port's copy of gstpu/elements/utils_/fallbacksrc.py: its http branch
-names `reqwesthttpsrc`, which the port does not register yet.
+runs the port's `reqwesthttpsrc`.
 """
 
 from __future__ import annotations

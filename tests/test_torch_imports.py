@@ -160,11 +160,42 @@ def test_import_loads_neither_jax_nor_gstpu():
             "import gstpu_torch.elements.net.tcp\n"
             "import gstpu_torch.elements.net.rtsp\n"
             "import gstpu_torch.elements.net.mpegtslive\n"
+            "import gstpu_torch.net.replay, gstpu_torch.net.webrtc.dtls\n"
+            "import gstpu_torch.net.quic.packet\n"
+            "import gstpu_torch.net.quic.recovery\n"
+            "import gstpu_torch.net.quic.tls13\n"
+            "import gstpu_torch.net.quic.connection\n"
+            "import gstpu_torch.net.quic.webtransport\n"
+            "import gstpu_torch.net.roq\n"
+            "import gstpu_torch.elements.net.quic\n"
+            "import gstpu_torch.elements.net.httpsrc\n"
+            "import gstpu_torch.elements.net.hls\n"
+            "import gstpu_torch.elements.net.dash\n"
+            "import gstpu_torch.elements.net.icecast\n"
             "import gstpu_torch.utils.validate\n"
             "import gstpu_torch.tools.launch, gstpu_torch.tools.inspect\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gstpu', 'h5py')]\n"
             "print(len(sys.modules), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_register_all_imports_no_cryptography():
+    """The QUIC, DTLS and packet-protection modules need `cryptography`,
+    which a machine may lack: registering every element imports none of
+    it (the quinn elements import their connection when they start)."""
+    code = ("import sys, gstpu_torch\n"
+            "gstpu_torch.init(device='cpu')\n"
+            "from gstpu_torch.core.registry import list_factories\n"
+            "assert 'quinnquicsink' in list_factories()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] == "
+            "'cryptography' or m.startswith('gstpu_torch.net.quic.') "
+            "or m.startswith('gstpu_torch.net.webrtc')]\n"
+            "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -259,6 +290,15 @@ def test_port_has_its_own_registry():
              "rtpsmpte291depay")
     assert len(set(item4)) == 70
     names += item4
+    # the HLS/DASH sinks, the HTTP source, Icecast and QUIC/WebTransport/
+    # RoQ of Queue D item 5
+    item5 = ("hlscmafsink", "hlsmultivariantsink", "hlswebvttsink",
+             "dashsink2", "reqwesthttpsrc", "icecastsink", "quinnquicsink",
+             "quinnquicsrc", "quinnquicmux", "quinnquicdemux",
+             "quinnwtserversink", "quinnwtsink", "quinnwtclientsrc",
+             "quinnwtsrc", "quinnroqmux", "quinnroqdemux")
+    assert len(set(item5)) == 16
+    names += item5
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
@@ -266,7 +306,26 @@ def test_port_has_its_own_registry():
         assert ref.__module__.startswith("gstpu.")
         assert element_rank(name) == jax_rank(name), name
     assert set(names) <= set(list_factories())
-    assert len(list_factories()) == 221
+    assert len(list_factories()) == 237
+    # gstpu's 268 less the WebRTC elements of Queue D item 6 and the cloud
+    # and model elements of item 7
+    from gstpu.core.registry import list_factories as jax_factories
+    missing = {
+        # item 6
+        "webrtcsink", "webrtcsrc", "webrtcsend", "webrtcrecv",
+        "whipsink", "whipclientsink", "whipserversrc", "whepsrc",
+        "whepclientsrc", "whepserversink", "janusvrwebrtcsink",
+        "janusvrwebrtcsrc", "uepswebrtcsink", "awskvswebrtcsink",
+        # item 7
+        "awss3src", "awss3sink", "awss3putobjectsink", "awss3hlssink",
+        "awstranscriber", "awstranscriber2", "awstranscribeparse",
+        "awstranslate", "awspolly", "deepgramtranscriber",
+        "speechmaticstranscriber", "whispertranscriber",
+        "elevenlabssynthesizer", "elevenlabsvoicecloner", "demucs",
+        "llamatexttransform", "llamacpp-texttransform"}
+    assert len(missing) == 31
+    assert set(jax_factories()) - set(list_factories()) == missing
+    assert set(list_factories()) <= set(jax_factories())
     # the ONVIF payloaders are ported beside the converters: the port's
     # classes, from the module the converters import their names from
     from gstpu_torch.elements.net import onvif

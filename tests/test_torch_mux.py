@@ -3,8 +3,8 @@ family (`isomp4mux`, `isofmp4mux`, `cmafmux`, `onvifmp4mux`), the FLV
 parser, writer and `rsflvdemux`, and `mpegtsmux`/`hlssink3`.
 
 Twins of tests/test_mp4mux.py, tests/test_flv.py and
-tests/test_mpegtsmux.py (less `dashsink2`, which the port does not
-have): each scenario runs once in each package on the same inputs, and
+tests/test_mpegtsmux.py (the `dashsink2` case of the last is in
+tests/test_torch_hls.py): each scenario runs once in each package on the same inputs, and
 every output buffer's bytes, flags and metas must be equal, with the
 reference test's own checks applied to the port's output. The modules
 are host code in both packages, so nothing here has a tolerance.
