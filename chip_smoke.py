@@ -525,6 +525,43 @@ NOT_ON_THE_CARD_18 = {
                    "tests/test_torch_hls.py holds it against gstpu's "
                    "behind a stand-in server"}
 
+# the WebRTC edge behind the card (phase 19), all on 127.0.0.1: 19a
+# PHONE_SECONDS of 17a's telephony leg as A-law into a request pad of
+# webrtcsink (its own signalling server, ICE, DTLS, SRTP and SCTP data
+# channels, GCC from TWCC feedback), negotiated by webrtcsrc over that
+# server; 19b the grade on WEBRTC_FRAMES 1080p frames as RFC 4175 RTP at
+# mtu RTP_MTU through webrtcsend and webrtcrecv, keyed by a DTLS
+# handshake between two DtlsEndpoints; 19c the telephony RTP through
+# whipclientsink into whipserversrc, and through whepserversink to
+# WHEP_CLIENTS whepclientsrc; 19d the grade on WEBRTC_VIDEO_FRAMES raw
+# frames into webrtcsink's encoder chain, only where the codec shim links
+# (the encoder holds frames back, and webrtcsink takes EOS in without
+# draining it). WEBRTC_LIMIT is a deadline in seconds that only a fault
+# reaches.
+WEBRTC_FRAMES, WEBRTC_VIDEO_FRAMES, WHEP_CLIENTS = 2, 8, 2
+WEBRTC_LIMIT = 60.0
+# 19c's SDP offer (its direction filled in), which the WHIP and WHEP
+# servers answer
+WHIP_OFFER = ("v=0\r\no=- 0 0 IN IP4 127.0.0.1\r\ns=-\r\nt=0 0\r\n"
+              "m=audio 9 UDP/TLS/RTP/SAVPF 8\r\na=rtpmap:8 PCMA/8000\r\n"
+              "a={}\r\n")
+NOT_ON_THE_CARD_19 = {
+    "janusvrwebrtcsink, janusvrwebrtcsrc": "speak Janus VideoRoom's JSON "
+        "API to a gateway; tests/test_torch_webrtcsink.py holds them "
+        "against gstpu's behind a stand-in gateway",
+    "uepswebrtcsink": "speaks to an Unreal Engine Pixel Streaming "
+        "signalling server; tests/test_torch_webrtcsink.py holds it "
+        "against gstpu's behind a stand-in server",
+    "awskvswebrtcsink": "needs AWS Kinesis Video Streams endpoints; "
+        "tests/test_torch_webrtcsink.py holds it against gstpu's behind "
+        "stand-in endpoints",
+    "TURN relay and STUN srflx candidates": "need a TURN or STUN server; "
+        "tests/test_torch_webrtc.py holds both against gstpu's behind "
+        "stand-in servers on 127.0.0.1",
+    "NtpClock (RFC 7273 ts-refclk)": "needs an SNTP server; "
+        "tests/test_torch_signalling.py holds it against gstpu's behind "
+        "a stand-in server"}
+
 
 def log(*args) -> None:
     print(*args, flush=True)
@@ -3130,7 +3167,9 @@ def push_tracer():
     inside its buffer pushes (inclusive of everything downstream), the
     same less the pushes nested in them (exclusive: the receiving
     element's own work on the buffer), the pushes, and where its first
-    payload lay. Nested pushes are kept a stack per thread."""
+    payload lay. Nested pushes are kept a stack per thread, and a pad's
+    start times a stack per pad (a pad may push again inside its own
+    push: webrtcsink's GCC feedback re-encodes inside the payloader's)."""
     from gstpu_torch.utils.tracing import Tracer
 
     class PushTimes(Tracer):
@@ -3146,12 +3185,12 @@ def push_tracer():
             self.payload: dict = {}
 
         def pre(self, pad, buf) -> None:
-            self.t0[pad] = time.perf_counter()
+            self.t0.setdefault(pad, []).append(time.perf_counter())
             self.nested.setdefault(threading.get_ident(), []).append(0.0)
             self.payload.setdefault(pad, payload_kind(buf.data))
 
         def post(self, pad, buf) -> None:
-            dt = time.perf_counter() - self.t0.pop(pad)
+            dt = time.perf_counter() - self.t0[pad].pop()
             nested = self.nested[threading.get_ident()]
             inner = nested.pop()
             if nested:
@@ -6052,6 +6091,594 @@ def distribution_phase(gstpu_torch, smi, tmp: Path, kernels,
     return res
 
 
+def alaw_string() -> str:
+    """19a's source: phone_rtp_string up to its A-law encoder `ae`."""
+    return phone_rtp_string().split(" ! rtppcmapay2")[0]
+
+
+def element_messages(gstpu_torch, p) -> list:
+    """The fields of every element message that `p`'s bus carries from
+    now on, in order (a sync handler)."""
+    mt = importlib.import_module(f"{gstpu_torch.__name__}.core.element")
+    out: list = []
+
+    def seen(m) -> None:
+        if m.type is mt.MessageType.ELEMENT:
+            out.append(m.fields)
+    p.bus.add_sync_handler(seen)
+    return out
+
+
+def wait_for(cond, what: str, *steps, limit: float = WEBRTC_LIMIT) -> None:
+    """Run `steps` until `cond()` holds; TimeoutError after `limit` s."""
+    deadline = time.monotonic() + limit
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"19: {what}")
+        for step in steps:
+            step()
+        time.sleep(0.0005)
+
+
+def iterate_until_eos(gstpu_torch, p, pad, feed=None) -> float:
+    """Set `p` PLAYING, `feed(p)` pushing its appsrc input, and iterate it
+    until EOS has passed `pad`: the WebRTC sinks take EOS in and post
+    none. The wall seconds, the card synchronised."""
+    seen = {"eos": False}
+
+    def probe(_, item) -> None:
+        if type(item).__name__ == "EosEvent":
+            seen["eos"] = True
+    pad.add_probe(probe)
+    p.set_state(gstpu_torch.State.PLAYING)
+    t0 = time.perf_counter()
+    if feed is not None:
+        feed(p)
+
+    def step() -> None:
+        if p._error_seen is not None:
+            raise RuntimeError(f"pipeline error: {p._error_seen}")
+        p.iterate()
+    wait_for(lambda: seen["eos"], "no EOS reached the sink", step,
+             limit=600)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def seq_loss(packets: list, sent: int) -> dict:
+    """The RTP sequence numbers of `packets` (bytes), those lost of
+    `sent`, and whether they came in order without a gap."""
+    seqs = [int.from_bytes(b[2:4], "big") for b in packets]
+    return {"seqnums": seqs, "lost": sent - len(set(seqs)),
+            "in_order": seqs == list(range(seqs[0], seqs[0] + len(seqs)))
+            if seqs else False}
+
+
+def webrtc_session(gstpu_torch, device: str, send: str, head: str,
+                   kind: str, feed=None, setup=None) -> dict:
+    """19a and 19d on `device`: the string `send`, its element `head`
+    linked into a request pad of webrtcsink `rtc` (data transport, its
+    own signalling server, GCC; `setup(sink)` before it starts), and in a
+    second pipeline webrtcsrc `rtc`, pointed at the URI the sink
+    announced, its RTP pad into appsink `rtp` and its typed pad
+    `{kind}_0` into appsink `out`. webrtcsrc negotiates by itself over
+    the server (listing, SDP, ICE, DTLS, SRTP). A probe on the sink's pad
+    starts the receiver at the first buffer and pumps both ends until
+    both transports are connected, then pumps the receiver on every
+    buffer, and at EOS both until every RTP packet the sink sent has
+    arrived and the sink has handled TWCC feedback for each 16 that did
+    (webrtcsrc sends one for each 16 arrivals). A probe on the sink's
+    payloader pumps the receiver every RTP_PACE packets, so that its
+    socket never holds more than that. The pipelines (in NULL),
+    the wall seconds, what `head` pushed (`head`), the RTP packets the
+    sink sent (`sent`), those that arrived (`rtp`), the typed pad's
+    buffers (`out`), the TWCC feedback the sink handled, both stats and
+    the element messages of both pipelines."""
+    gstpu_torch.init(device=device)
+    State = gstpu_torch.State
+    make = importlib.import_module(
+        f"{gstpu_torch.__name__}.core.registry").make
+    s = gstpu_torch.parse_launch(send)
+    sink = make("webrtcsink", "rtc", enable_data_transport=True,
+                run_signalling_server=True, congestion_control="gcc")
+    if setup is not None:
+        setup(sink)
+    paced = {"packets": 0}
+
+    def pace_packets(_, item) -> None:
+        if hasattr(item, "to_bytes"):
+            paced["packets"] += 1
+            if paced["packets"] % RTP_PACE == 0:
+                src.pump()
+
+    def pace_payloader(_, pad_name, pay) -> bool:
+        pay.static_pad("src").add_probe(pace_packets)
+        return False
+    sink.connect("payloader-setup", pace_payloader)
+    s.add(sink)
+    pad = sink.request_pad()
+    s.get_by_name(head).static_pad("src").link(pad)
+    pushed = record_buffers(s.get_by_name(head).static_pad("src"))
+    msgs = {"send": element_messages(gstpu_torch, s)}
+    twcc: list = []
+    handle = sink.handle_twcc_feedback
+
+    def counted(data: bytes):
+        twcc.append(len(data))
+        return handle(data)
+    sink.handle_twcc_feedback = counted
+    s.set_state(State.READY)
+    uri = next(m["uri"] for m in msgs["send"]
+               if m.get("name") == "signalling-server-started")
+    core = sink._sig_server.core
+    wait_for(lambda: any("producer" in p.roles
+                         for p in list(core._peers.values())),
+             "the producer never registered")
+    r = gstpu_torch.parse_launch(
+        f"webrtcsrc name=rtc enable-data-transport=true "
+        f"signaller-uri={uri} ! appsink name=rtp sync=false")
+    src = r.get_by_name("rtc")
+    out = make("appsink", "out", sync=False)
+    r.add(out)
+    on_pad_added(src, f"{kind}_0", out.static_pad("sink"))
+    msgs["recv"] = element_messages(gstpu_torch, r)
+    arrived = record_buffers(src.static_pad("src"))
+
+    def n_sent() -> int:
+        return sum(n for n, _, _ in getattr(sink, "_sr_acct", {}).values())
+
+    def connected() -> bool:
+        trs = list(sink._transports.values())
+        return bool(trs and trs[0][0].connected and src._transport
+                    is not None and src._transport.connected)
+
+    state = {"started": False}
+
+    def pace(_, item):
+        if not hasattr(item, "to_bytes"):
+            if type(item).__name__ == "EosEvent":
+                wait_for(lambda: len(arrived) == n_sent() and len(twcc)
+                         >= len(arrived) // 16,
+                         "not every RTP packet or TWCC report arrived",
+                         sink.pump, src.pump)
+            return None
+        if not state["started"]:
+            state["started"] = True
+            r.set_state(State.PLAYING)
+            wait_for(connected, "the session never connected",
+                     sink.pump, src.pump)
+        src.pump()
+        return None
+    pad.add_probe(pace)
+    dt = iterate_until_eos(gstpu_torch, s, pad, feed)
+    sid = next(iter(sink._transports))
+    res = {"pipes": {"send": s, "recv": r}, "seconds": dt, "uri": uri,
+           "head": [b.to_bytes() for b in pushed], "sent": n_sent(),
+           "rtp": [b.to_bytes() for b in arrived],
+           "out": [b.to_bytes() for b in out.pull_all()],
+           "twcc": twcc, "sink_stats": sink.stats,
+           "src_stats": src.stats, "session": sid,
+           "limits": (sink.min_bitrate, sink.max_bitrate)}
+    r.set_state(State.NULL)
+    s.set_state(State.NULL)
+    # webrtcsrc's NULL leaves its signalling client running (gstpu's
+    # second `stop` hides the first; ROADMAP Queue C)
+    if src._sig_client is not None:
+        src._sig_client.stop()
+    res.update(msgs=msgs, server_stopped=sink._sig_server is None
+               and sink._sig_client is None, **seq_loss(res["rtp"],
+                                                       res["sent"]))
+    res["auth_failures"] = sum(
+        m.get("name") == "webrtc-transport-drop"
+        for side in msgs.values() for m in side)
+    return res
+
+
+def webrtc_phone(gstpu_torch, device: str, seconds: float) -> dict:
+    """19a on `device`: `seconds` of edge_signal through alaw_string into
+    webrtc_session, read depayloaded on `audio_0`. The sink's payloader
+    gets 17a's mtu in its payloader-setup signal, so that it sends 20 ms
+    packets (its default mtu makes ~173 ms ones)."""
+    x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+
+    def setup(sink) -> None:
+        def configure(_, pad_name, pay) -> bool:
+            pay.mtu = PHONE_MTU
+            return False
+        sink.connect("payloader-setup", configure)
+    return webrtc_session(gstpu_torch, device, alaw_string(), "ae",
+                          "audio", feed_blocks(gstpu_torch, x, RATE_192K),
+                          setup)
+
+
+def webrtc_video(gstpu_torch, device: str, w: int, h: int, n: int,
+                 cube: Path) -> dict:
+    """19d on `device`: the grade on n raw frames, as I420 (the encoders
+    take no RGBA), into webrtcsink's encoder chain (the codec its
+    discovery picks), read depayloaded on
+    `video_0`. webrtc_session's result with what the encoder wrote
+    (`encoded`) and its factory."""
+    src, grade = grade_strings(w, h, n, cube)
+    enc: dict = {"buffers": []}
+
+    def setup(sink) -> None:
+        def chosen(_, pad_name, encoder) -> bool:
+            enc["factory"] = type(encoder).__name__
+            enc["buffers"] = record_buffers(encoder.static_pad("src"))
+            return False
+        sink.connect("encoder-setup", chosen)
+    res = webrtc_session(gstpu_torch, device, f'{src} ! {grade} ! '
+                         f'videoconvert ! capsfilter name=i420 caps='
+                         f'"video/x-raw, format=I420"', "i420", "video",
+                         setup=setup)
+    res.update(encoder=enc.get("factory"),
+               encoded=[b.to_bytes() for b in enc["buffers"]])
+    return res
+
+
+def srtp_keys(gstpu_torch) -> tuple:
+    """19b's keys: two of the package's DtlsEndpoints complete a
+    handshake in memory; the client's exported sending key and salt and
+    the server's receiving ones, each as the 60 hex digits webrtcsend
+    and webrtcrecv take."""
+    dtls = importlib.import_module(
+        f"{gstpu_torch.__name__}.net.webrtc.dtls")
+    client = dtls.DtlsEndpoint(client=True)
+    server = dtls.DtlsEndpoint(client=False)
+    client.handshake()
+    while not (client.connected and server.connected):
+        moved = False
+        while (d := client.poll_transmit()) is not None:
+            server.handle_packet(d)
+            moved = True
+        while (d := server.poll_transmit()) is not None:
+            client.handle_packet(d)
+            moved = True
+        if not moved:
+            raise AssertionError("19b: the DTLS handshake stalled")
+    return (b"".join(client.srtp_keys.send_key_salt(True)).hex(),
+            b"".join(server.srtp_keys.recv_key_salt(False)).hex())
+
+
+def srtp_grade(gstpu_torch, device: str, w: int, h: int, n: int,
+               cube: Path) -> dict:
+    """19b on `device`: vraw_strings with webrtcsend ahead of udpsink and
+    webrtcrecv behind udpsrc (SRTP caps with the stream's fields), keyed
+    by srtp_keys. udp_pair's result, with the frames received (bytes),
+    the sequence numbers into the depayloader and those lost (as 17b's),
+    and webrtcrecv's authentication failures."""
+    tx, rx = srtp_keys(gstpu_torch)
+    send, recv = vraw_strings(w, h, n, cube)
+    send = send.replace(" ! udpsink", f" ! webrtcsend name=srtp key={tx} "
+                        f"! udpsink")
+    recv = recv.replace("application/x-rtp", "application/x-srtp").replace(
+        " ! rtpvrawdepay2", f" ! webrtcrecv name=srtp key={rx} ! "
+        f"rtpvrawdepay2")
+    res = udp_pair(gstpu_torch, device, send, recv,
+                   (("recv", "depay", "sink"),))
+    res.update(seq_loss([b.to_bytes()
+                         for b in res["taps"]["recv", "depay", "sink"]],
+                        res["counts"]["sent"]),
+               frames=[b.to_bytes() for b in res["out"]], keys_equal=tx == rx,
+               auth_failures=res["pipes"]["recv"].get_by_name("srtp")
+               .stats["auth_failures"])
+    return res
+
+
+def relay_pad(gstpu_torch, fn):
+    """A sink pad of no element that hands each buffer to `fn(buf)`: the
+    application's hop between a WHIP or WHEP element and its peer."""
+    el = importlib.import_module(f"{gstpu_torch.__name__}.core.element")
+    caps = importlib.import_module(f"{gstpu_torch.__name__}.core.caps")
+    pad = el.Pad("relay", el.PadDirection.SINK, el.PadTemplate(
+        "sink", el.PadDirection.SINK, el.PadPresence.ALWAYS,
+        caps.Caps.any()))
+
+    def chain(_, buf):
+        fn(buf)
+        return el.FlowReturn.OK
+    pad.chain_function = chain
+    pad.event_function = lambda p, e: True
+    return pad
+
+
+def whip_phone(gstpu_torch, device: str, seconds: float) -> dict:
+    """19c's WHIP leg on `device`: phone_rtp_string into whipclientsink
+    `whip`, and whipserversrc `srv` in a second pipeline. The client's
+    offer and the server's answer pass between them as HTTP records in
+    code (the WHIP POST); the session pad the server adds feeds appsink
+    `out`, and the client's `rtp` pad hands each packet to the server's
+    push_rtp. Then the client's DELETE. The wall seconds, the RTP the
+    payloader sent (`sent`), what `out` got, the HTTP statuses and
+    whether the DELETE took the session pad away."""
+    gstpu_torch.init(device=device)
+    State = gstpu_torch.State
+    make = importlib.import_module(
+        f"{gstpu_torch.__name__}.core.registry").make
+    s = gstpu_torch.parse_launch(f"{phone_rtp_string()} ! whipclientsink "
+                                 f"name=whip whip-endpoint=/whip")
+    r = gstpu_torch.parse_launch("whipserversrc name=srv")
+    out = make("appsink", "out", sync=False)
+    r.add(out)
+    r.set_state(State.PLAYING)
+    s.set_state(State.READY)
+    whip, srv = s.get_by_name("whip"), r.get_by_name("srv")
+    resp = srv.handle_request(whip.post_offer(WHIP_OFFER.format("sendonly")))
+    whip.handle_response(resp)
+    sid = whip.session.resource_url.rsplit("/", 1)[1]
+    srv.static_pad(f"session_{sid}").link(out.static_pad("sink"))
+    whip.static_pad("rtp").link(relay_pad(
+        gstpu_torch, lambda b: srv.push_rtp(sid, b.to_bytes(), b.pts)))
+    sent = record_buffers(s.get_by_name("pay").static_pad("src"))
+    x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+    dt = iterate_until_eos(gstpu_torch, s, whip.static_pad("sink"),
+                           feed_blocks(gstpu_torch, x, RATE_192K))
+    got = [b.to_bytes() for b in out.pull_all()]
+    bye = srv.handle_request(whip.session.teardown())
+    res = {"seconds": dt, "sent": [b.to_bytes() for b in sent], "got": got,
+           "status": (resp.status, bye.status), "state": whip.session.state,
+           "pad_removed": srv.static_pad(f"session_{sid}") is None,
+           "pipes": {"send": s, "recv": r}}
+    for p in (s, r):
+        p.set_state(State.NULL)
+    return res
+
+
+def whep_phone(gstpu_torch, device: str, seconds: float,
+               clients: int) -> dict:
+    """19c's WHEP leg on `device`: phone_rtp_string into whepserversink
+    `whep`; in a second pipeline `clients` whepclientsrc `c<i>`, each
+    into appsink `out<i>`. Each client's offer and the server's answer
+    pass between them as HTTP records in code; each session pad the
+    server adds hands its packets to its client's push_rtp. The wall
+    seconds, the RTP the payloader sent (`sent`) and what each `out<i>`
+    got."""
+    gstpu_torch.init(device=device)
+    State = gstpu_torch.State
+    s = gstpu_torch.parse_launch(f"{phone_rtp_string()} ! whepserversink "
+                                 f"name=whep")
+    r = gstpu_torch.parse_launch("whepclientsrc name=c0 whep-endpoint=/whep "
+                                 "! appsink name=out0 sync=false")
+    for i in range(1, clients):
+        gstpu_torch.parse_launch(f"whepclientsrc name=c{i} whep-endpoint="
+                                 f"/whep ! appsink name=out{i} sync=false",
+                                 pipeline=r)
+    r.set_state(State.PLAYING)
+    s.set_state(State.READY)
+    whep = s.get_by_name("whep")
+    status = []
+    for i in range(clients):
+        c = r.get_by_name(f"c{i}")
+        resp = whep.handle_request(c.post_offer(WHIP_OFFER.format(
+            "recvonly")))
+        status.append(resp.status)
+        c.handle_response(resp)
+        sid = c.session.resource_url.rsplit("/", 1)[1]
+        whep.static_pad(f"session_{sid}").link(relay_pad(
+            gstpu_torch, lambda b, c=c: c.push_rtp(b.to_bytes(), b.pts)))
+    sent = record_buffers(s.get_by_name("pay").static_pad("src"))
+    x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+    dt = iterate_until_eos(gstpu_torch, s, whep.static_pad("sink"),
+                           feed_blocks(gstpu_torch, x, RATE_192K))
+    res = {"seconds": dt, "sent": [b.to_bytes() for b in sent],
+           "got": [[b.to_bytes() for b in r.get_by_name(f"out{i}")
+                    .pull_all()] for i in range(clients)],
+           "status": status, "pipes": {"send": s, "recv": r}}
+    for p in (s, r):
+        p.set_state(State.NULL)
+    return res
+
+
+def webrtc_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """19. Queue D item 6's WebRTC elements between the card's chains and
+    their peers, all on 127.0.0.1: (a) the flagship's telephony in a live
+    webrtcsink-webrtcsrc session over the sink's own signalling server;
+    (b) BASELINE config 4's 1080p grade over SRTP keyed by a DTLS
+    handshake; (c) the telephony RTP through WHIP and WHEP; (d) the grade
+    into webrtcsink's encoder chain, only where the codec shim links.
+    Each leg is held against the same on the CPU. Each kernel's launches
+    in b and d."""
+    cube = tmp / "webrtc.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    res, launches = {}, {k.name: 0 for k in kernels}
+    w, h = EDGE_W, EDGE_H
+
+    # 19a
+    a, tracer, calls, _ = traced(kernels, lambda: webrtc_phone(
+        gstpu_torch, "cuda", PHONE_SECONDS))
+    cpu = webrtc_phone(gstpu_torch, "cpu", PHONE_SECONDS)
+    est = a["sink_stats"]["gcc-estimate"]
+    lo, hi = a["limits"]
+    r = res["session"] = {
+        "seconds_of_audio": PHONE_SECONDS, "wall_s": a["seconds"],
+        "cpu_wall_s": cpu["seconds"], "uri": a["uri"],
+        "connected": [a["sink_stats"]["sessions"][a["session"]]
+                      ["transport-connected"],
+                      a["src_stats"]["transport-connected"]],
+        "data_channel_open": a["sink_stats"]["sessions"][a["session"]]
+        ["data-channel-open"],
+        "rtp_sent": a["sent"], "rtp_arrived": len(a["rtp"]),
+        "lost": a["lost"], "in_order": a["in_order"],
+        "auth_failures": a["auth_failures"],
+        "twcc_feedback": len(a["twcc"]), "twcc_bytes": a["twcc"],
+        "gcc_estimate": est, "gcc_limits": [lo, hi],
+        "alaw_bytes": sum(map(len, a["out"])),
+        "equal_to_cpu": a["out"] == cpu["out"],
+        "equal_to_alawenc": b"".join(a["out"]) == b"".join(a["head"]),
+        "cpu_lost": cpu["lost"], "cpu_auth_failures": cpu["auth_failures"],
+        "server_stopped": a["server_stopped"],
+        "array_calls": new_reads(calls, ("ae", "rtc", "out", "rtp")),
+        "echo_output": tracer.payload.get(
+            a["pipes"]["send"].get_by_name("echo").static_pad("src")),
+        "host_ms_per_s": {
+            "send": own_ms(tracer, a["pipes"]["send"],
+                           ["echo", "norm", "res", "conv", "ae", "rtc"],
+                           PHONE_SECONDS),
+            "recv": own_ms(tracer, a["pipes"]["recv"], ["out", "rtp"],
+                           PHONE_SECONDS)}}
+    log(f"[webrtc] 19a: {PHONE_SECONDS} s of the flagship at 192 kHz stereo "
+        f"into A-law at {PHONE_RATE} Hz, into webrtcsink (its signalling "
+        f"server at {r['uri']}), negotiated by webrtcsrc over it: transports "
+        f"connected {r['connected']}, data channel open "
+        f"{r['data_channel_open']}; {r['rtp_sent']} RTP packets sent, "
+        f"{r['rtp_arrived']} arrived, {r['lost']} lost, in order "
+        f"{r['in_order']}, {r['auth_failures']} SRTP drops; "
+        f"{r['twcc_feedback']} TWCC feedback packets ({r['twcc_bytes']} B) "
+        f"into GCC, estimate {est} bps within [{lo}, {hi}]; "
+        f"{r['alaw_bytes']} A-law bytes on audio_0, "
+        f"{'equal to' if r['equal_to_cpu'] else 'DIFFERENT FROM'} the CPU "
+        f"run's, what alawenc wrote: {r['equal_to_alawenc']}; the echo's "
+        f"output {r['echo_output']}; Buffer.array calls {r['array_calls']}; "
+        f"{a['seconds']:.3f} s on the card (tracer on), {cpu['seconds']:.3f} "
+        f"s on the CPU; host ms per second of audio: " + "; ".join(
+            f"{side} " + ", ".join(f"{k} {v:.2f}" for k, v in o.items())
+            for side, o in r["host_ms_per_s"].items()) + f"  [{smi}]")
+    if not (all(r["connected"]) and r["equal_to_cpu"]
+            and r["equal_to_alawenc"] and r["alaw_bytes"]
+            == round(PHONE_SECONDS * PHONE_RATE) and r["lost"] == 0
+            and r["in_order"] and r["auth_failures"] == 0
+            and r["cpu_lost"] == 0 and r["cpu_auth_failures"] == 0
+            and r["twcc_feedback"] == r["rtp_arrived"] // 16 > 0
+            and est is not None and lo <= est <= hi
+            and r["server_stopped"]
+            and r["echo_output"] == "tensor on cuda"):
+        raise AssertionError(f"19a: {r}")
+
+    # 19b
+    b, tracer, calls, n = traced(kernels, lambda: srtp_grade(
+        gstpu_torch, "cuda", w, h, WEBRTC_FRAMES, cube))
+    cpu = srtp_grade(gstpu_torch, "cpu", w, h, WEBRTC_FRAMES, cube)
+    r = res["srtp"] = {
+        "frames": len(b["frames"]), "fps": WEBRTC_FRAMES / b["seconds"],
+        "cpu_wall_s": cpu["seconds"], "keys_equal": b["keys_equal"],
+        "datagrams": b["counts"]["sent"],
+        "packets_a_frame": b["counts"]["sent"] / WEBRTC_FRAMES,
+        "lost": b["lost"], "in_order": b["in_order"],
+        "auth_failures": b["auth_failures"],
+        "equal_to_cpu": b["frames"] == cpu["frames"],
+        "cpu_lost": cpu["lost"], "launches": n,
+        "array_calls": new_reads(calls, ("pay", "srtp", "udp", "src",
+                                         "depay", "out")),
+        "downloads": dict(calls.tensor_calls),
+        "grade_output": tracer.payload.get(
+            b["pipes"]["send"].get_by_name("pay").static_pad("sink").peer),
+        "native_recvmmsg": b["native"],
+        "host_ms_a_frame": {
+            "send": own_ms(tracer, b["pipes"]["send"],
+                           ["pay", "srtp", "udp"], WEBRTC_FRAMES),
+            "recv": own_ms(tracer, b["pipes"]["recv"],
+                           ["srtp", "depay", "out"], WEBRTC_FRAMES)}}
+    log(f"[webrtc] 19b: {r['frames']} frames of {w}x{h} RGBA through the "
+        f"grade into rtpvrawpay2 mtu={RTP_MTU}, webrtcsend and udpsink, "
+        f"into udpsrc, webrtcrecv and rtpvrawdepay2, keyed by a DTLS "
+        f"handshake (the two ends' keys equal: {r['keys_equal']}); "
+        f"{r['packets_a_frame']} SRTP packets a frame, {r['lost']} lost, "
+        f"in order {r['in_order']}, {r['auth_failures']} authentication "
+        f"failures; frames {'equal to' if r['equal_to_cpu'] else 'DIFFERENT FROM'}"
+        f" the CPU run's; the grade reached the payloader as "
+        f"{r['grade_output']}; Buffer.array calls {r['array_calls']}, "
+        f"downloads {r['downloads']}; launches {n}; native recvmmsg "
+        f"{b['native']}; {r['fps']:.3f} fps (tracer on), "
+        f"{cpu['seconds']:.3f} s on the CPU; host ms a frame "
+        f"{r['host_ms_a_frame']} (udpsink beside webrtcsend is 17b's "
+        f"element)  [{smi}]")
+    if not r["equal_to_cpu"] or r["frames"] != WEBRTC_FRAMES \
+            or r["lost"] or not r["in_order"] or r["auth_failures"] \
+            or r["cpu_lost"] or not r["keys_equal"] \
+            or r["array_calls"] != {"pay": WEBRTC_FRAMES} \
+            or r["downloads"] != {"pay": WEBRTC_FRAMES} \
+            or r["grade_output"] != "tensor on cuda" \
+            or any(v != WEBRTC_FRAMES for v in n.values()):
+        raise AssertionError(f"19b: {r}")
+    for k in kernels:
+        launches[k.name] += n[k.name]
+
+    # 19c
+    c, tracer, calls, _ = traced(kernels, lambda: whip_phone(
+        gstpu_torch, "cuda", PHONE_SECONDS))
+    cpu = whip_phone(gstpu_torch, "cpu", PHONE_SECONDS)
+    r = res["whip"] = {
+        "rtp_sent": len(c["sent"]), "got": len(c["got"]),
+        "exact": c["got"] == c["sent"], "equal_to_cpu": c["got"]
+        == cpu["got"], "http_status": c["status"], "state": c["state"],
+        "pad_removed": c["pad_removed"], "wall_s": c["seconds"],
+        "array_calls": new_reads(calls, ("pay", "whip", "srv", "out")),
+        "host_ms_per_s": own_ms(tracer, c["pipes"]["send"],
+                                ["pay", "whip"], PHONE_SECONDS)}
+    e, tracer, calls, _ = traced(kernels, lambda: whep_phone(
+        gstpu_torch, "cuda", PHONE_SECONDS, WHEP_CLIENTS))
+    cpu = whep_phone(gstpu_torch, "cpu", PHONE_SECONDS, WHEP_CLIENTS)
+    q = res["whep"] = {
+        "rtp_sent": len(e["sent"]), "got": [len(g) for g in e["got"]],
+        "exact": [g == e["sent"] for g in e["got"]],
+        "equal_to_cpu": e["got"] == cpu["got"], "http_status": e["status"],
+        "wall_s": e["seconds"],
+        "array_calls": new_reads(calls, ("pay", "whep", "out0", "out1")),
+        "host_ms_per_s": own_ms(tracer, e["pipes"]["send"],
+                                ["pay", "whep"], PHONE_SECONDS)}
+    log(f"[webrtc] 19c: the telephony RTP through whipclientsink into "
+        f"whipserversrc (HTTP {r['http_status']}, resource {r['state']}, "
+        f"session pad removed by the DELETE: {r['pad_removed']}): "
+        f"{r['got']} of {r['rtp_sent']} packets, exactly what the payloader "
+        f"sent: {r['exact']}, the CPU run's: {r['equal_to_cpu']}; through "
+        f"whepserversink to {WHEP_CLIENTS} whepclientsrc (HTTP "
+        f"{q['http_status']}): {q['got']} of {q['rtp_sent']} packets, "
+        f"exact {q['exact']}, the CPU run's: {q['equal_to_cpu']}; "
+        f"Buffer.array calls WHIP {r['array_calls']}, WHEP "
+        f"{q['array_calls']}; host ms per second of audio WHIP "
+        f"{r['host_ms_per_s']}, WHEP {q['host_ms_per_s']}  [{smi}]")
+    if not (r["exact"] and r["equal_to_cpu"] and r["rtp_sent"] > 0
+            and r["http_status"] == (201, 200) and r["pad_removed"]
+            and all(q["exact"]) and q["equal_to_cpu"] and q["rtp_sent"] > 0
+            and q["http_status"] == [201] * WHEP_CLIENTS):
+        raise AssertionError(f"19c: whip {r}, whep {q}")
+
+    # 19d
+    not_run = dict(NOT_ON_THE_CARD_19)
+    shim = importlib.import_module(
+        f"{gstpu_torch.__name__}.native_codec").load() is not None
+    log(f"[webrtc] the codec shim {'links' if shim else 'does not link'} "
+        f"(native_codec.load())")
+    if shim:
+        d, tracer, calls, n = traced(kernels, lambda: webrtc_video(
+            gstpu_torch, "cuda", w, h, WEBRTC_VIDEO_FRAMES, cube))
+        cpu = webrtc_video(gstpu_torch, "cpu", w, h, WEBRTC_VIDEO_FRAMES,
+                           cube)
+        r = res["video"] = {
+            "encoder": d["encoder"], "frames_encoded": len(d["encoded"]),
+            "rtp_sent": d["sent"], "lost": d["lost"],
+            "auth_failures": d["auth_failures"],
+            "depayloaded_is_encoded": b"".join(d["out"])
+            == b"".join(d["encoded"]),
+            "cpu_encoder": cpu["encoder"], "launches": n,
+            "cpu_frames_encoded": len(cpu["encoded"]),
+            "array_calls": new_reads(calls, ("i420", "rtc")),
+            "host_ms_a_frame": own_ms(tracer, d["pipes"]["send"], ["rtc"],
+                                      WEBRTC_VIDEO_FRAMES)}
+        log(f"[webrtc] 19d: {WEBRTC_VIDEO_FRAMES} raw frames of {w}x{h} "
+            f"into webrtcsink's encoder chain: {r}  [{smi}]")
+        if not (r["depayloaded_is_encoded"] and r["lost"] == 0
+                and r["auth_failures"] == 0 and r["encoder"]
+                == r["cpu_encoder"] and r["frames_encoded"]
+                == r["cpu_frames_encoded"] > 0
+                and all(v == WEBRTC_VIDEO_FRAMES for v in n.values())):
+            raise AssertionError(f"19d: {r}")
+        for k in kernels:
+            launches[k.name] += n[k.name]
+    else:
+        not_run["webrtcsink's raw-video encoder chain (19d)"] = (
+            "its codecs (rav1enc, vp8enc, vp9enc) need the codec shim, "
+            "which needs libavcodec; tests/test_torch_webrtcsink.py holds "
+            "the chain against gstpu's, tests/test_torch_webrtc.py runs "
+            "the leg at 64x48")
+    res["not_on_the_card"] = not_run
+    for name, why in not_run.items():
+        log(f"[webrtc] not run on the card: {name}: {why}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -6465,12 +7092,19 @@ def main() -> int:
     edge_dir.cleanup()
     for row in rows:
         row["launches_distribution"] = dist["launches"][row["name"]]
+    # 19. the WebRTC elements of Queue D item 6 between the card's chains
+    # and their peers
+    t19 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        webrtc = webrtc_phase(gstpu_torch, smi, Path(tmp), kernels)
+    for row in rows:
+        row["launches_webrtc"] = webrtc["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
                                "11": t12 - t11, "12": t13 - t12,
                                "13": t14 - t13, "14": t15 - t14,
                                "15": t16 - t15, "16": t17 - t16,
-                               "17": t18 - t17,
-                               "18": time.monotonic() - t18})
+                               "17": t18 - t17, "18": t19 - t18,
+                               "19": time.monotonic() - t19})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -6488,6 +7122,7 @@ def main() -> int:
     log(json.dumps({"plumbing": plumbing}))
     log(json.dumps({"rtp": rtp}))
     log(json.dumps({"distribution": dist}))
+    log(json.dumps({"webrtc": webrtc}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -67,8 +67,12 @@ _MODULES = [
     "gstpu_torch.elements.net.hls",
     "gstpu_torch.elements.net.mpegtslive",
     "gstpu_torch.elements.net.raptorq",
+    "gstpu_torch.elements.net.webrtcsink",
     "gstpu_torch.elements.net.httpsrc",
     "gstpu_torch.elements.net.quic",
+    "gstpu_torch.elements.net.janusvr",
+    "gstpu_torch.elements.net.ueps",
+    "gstpu_torch.elements.net.awskvs",
     "gstpu_torch.elements.net.icecast",
     "gstpu_torch.elements.net.dash",
     "gstpu_torch.elements.net.gccbwe",

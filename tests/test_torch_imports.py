@@ -185,16 +185,25 @@ def test_import_loads_neither_jax_nor_gstpu():
 
 
 def test_register_all_imports_no_cryptography():
-    """The QUIC, DTLS and packet-protection modules need `cryptography`,
-    which a machine may lack: registering every element imports none of
-    it (the quinn elements import their connection when they start)."""
+    """The QUIC, DTLS, SRTP and packet-protection modules need
+    `cryptography`, which a machine may lack: registering every element
+    imports none of it (the quinn elements import their connection when
+    they start, the WebRTC elements their transport, SRTP context and
+    signalling, and awskvswebrtcsink its SigV4 signer)."""
     code = ("import sys, gstpu_torch\n"
             "gstpu_torch.init(device='cpu')\n"
             "from gstpu_torch.core.registry import list_factories\n"
-            "assert 'quinnquicsink' in list_factories()\n"
+            "assert {'quinnquicsink', 'webrtcsink', 'webrtcsrc', "
+            "'webrtcsend', 'webrtcrecv', 'whipsink', 'whepsrc', "
+            "'janusvrwebrtcsink', 'uepswebrtcsink', 'awskvswebrtcsink'} "
+            "<= set(list_factories())\n"
             "bad = [m for m in sys.modules if m.split('.')[0] == "
             "'cryptography' or m.startswith('gstpu_torch.net.quic.') "
-            "or m.startswith('gstpu_torch.net.webrtc')]\n"
+            "or m.startswith('gstpu_torch.net.webrtc') or m in ("
+            "'gstpu_torch.net.srtp', 'gstpu_torch.net.ws', "
+            "'gstpu_torch.net.webserver', 'gstpu_torch.net.rtp.twcc', "
+            "'gstpu_torch.net.rtp.ulpfec', 'gstpu_torch.core.netclock') "
+            "or m.startswith('gstpu_torch.net.aws')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -299,6 +308,13 @@ def test_port_has_its_own_registry():
              "quinnwtsrc", "quinnroqmux", "quinnroqdemux")
     assert len(set(item5)) == 16
     names += item5
+    # the WebRTC elements of Queue D item 6
+    item6 = ("webrtcsink", "webrtcsrc", "webrtcsend", "webrtcrecv",
+             "whipsink", "whipclientsink", "whipserversrc", "whepsrc",
+             "whepclientsrc", "whepserversink", "janusvrwebrtcsink",
+             "janusvrwebrtcsrc", "uepswebrtcsink", "awskvswebrtcsink")
+    assert len(set(item6)) == 14
+    names += item6
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
@@ -306,24 +322,17 @@ def test_port_has_its_own_registry():
         assert ref.__module__.startswith("gstpu.")
         assert element_rank(name) == jax_rank(name), name
     assert set(names) <= set(list_factories())
-    assert len(list_factories()) == 237
-    # gstpu's 268 less the WebRTC elements of Queue D item 6 and the cloud
-    # and model elements of item 7
+    assert len(list_factories()) == 251
+    # gstpu's 268 less the cloud and model elements of Queue D item 7
     from gstpu.core.registry import list_factories as jax_factories
     missing = {
-        # item 6
-        "webrtcsink", "webrtcsrc", "webrtcsend", "webrtcrecv",
-        "whipsink", "whipclientsink", "whipserversrc", "whepsrc",
-        "whepclientsrc", "whepserversink", "janusvrwebrtcsink",
-        "janusvrwebrtcsrc", "uepswebrtcsink", "awskvswebrtcsink",
-        # item 7
         "awss3src", "awss3sink", "awss3putobjectsink", "awss3hlssink",
         "awstranscriber", "awstranscriber2", "awstranscribeparse",
         "awstranslate", "awspolly", "deepgramtranscriber",
         "speechmaticstranscriber", "whispertranscriber",
         "elevenlabssynthesizer", "elevenlabsvoicecloner", "demucs",
         "llamatexttransform", "llamacpp-texttransform"}
-    assert len(missing) == 31
+    assert len(missing) == 17
     assert set(jax_factories()) - set(list_factories()) == missing
     assert set(list_factories()) <= set(jax_factories())
     # the ONVIF payloaders are ported beside the converters: the port's
@@ -394,3 +403,41 @@ def test_rsaudioecho_has_no_context_block():
     assert DeviceContext.acquire("cb").block == 256
     p.set_state(gstpu_torch.State.NULL)
     DeviceContext.release("cb")
+
+
+def test_port_aws_holds_only_what_awskvs_needs():
+    """`gstpu_torch.net.aws` was brought forward from Queue D item 7 for
+    awskvswebrtcsink alone: it holds the package and SigV4, not S3 or the
+    event stream; awskvs imports only SigV4's two signers from it, and
+    they sign as gstpu's do."""
+    import ast
+    from datetime import datetime, timezone
+
+    from gstpu.net.aws import sigv4 as ref
+    from gstpu_torch.net.aws import sigv4
+    aws = ROOT / "gstpu_torch" / "net" / "aws"
+    assert sorted(p.name for p in aws.glob("*.py")) == ["__init__.py",
+                                                         "sigv4.py"]
+    assert sorted(p.name for p in (ROOT / "gstpu" / "net" / "aws")
+                  .glob("*.py")) == ["__init__.py", "eventstream.py",
+                                     "s3.py", "sigv4.py"]
+    tree = ast.parse((ROOT / "gstpu_torch" / "elements" / "net" /
+                      "awskvs.py").read_text())
+    used = {(n.module, a.name) for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and "aws" in (n.module or "")
+            for a in n.names}
+    assert used == {("gstpu_torch.net.aws.sigv4", "sign_request"),
+                    ("gstpu_torch.net.aws.sigv4", "presign_url")}
+    now = datetime(2015, 8, 30, 12, 36, tzinfo=timezone.utc)
+    kw = dict(method="POST", region="us-east-1", service="kinesisvideo",
+              access_key="AKIDEXAMPLE",
+              secret_key="wJalrXUtnFEMI/K7MDENG+bPxRfiCYEXAMPLEKEY", now=now)
+    assert sigv4.sign_request(url="https://kinesisvideo.us-east-1."
+                              "amazonaws.com/describeSignalingChannel",
+                              payload=b"{}", **kw) == ref.sign_request(
+        url="https://kinesisvideo.us-east-1.amazonaws.com/"
+            "describeSignalingChannel", payload=b"{}", **kw)
+    kw["method"] = "GET"
+    url = "wss://v-1234.kinesisvideo.us-east-1.amazonaws.com/?X-Amz-" \
+          "ChannelARN=arn"
+    assert sigv4.presign_url(url=url, **kw) == ref.presign_url(url=url, **kw)

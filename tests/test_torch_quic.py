@@ -943,18 +943,15 @@ def _rtp(seq, ssrc=0x1234, payload=b"\xAB" * 32):
 
 
 def _srtp(body):
-    """The port has no SRTP yet (Queue D item 6): the SRTP twins run
-    gstpu's SrtpContext/SrtcpContext with its replay window taken from
-    each package in turn, and what each packet met must be equal."""
-    srtp = importlib.import_module("gstpu.net.srtp")
-    saved = srtp.ReplayWindow
-    try:
-        obs = []
-        for name in NAMES:
-            srtp.ReplayWindow = QPkg(name).ReplayWindow
-            obs.append(body(srtp))
-    finally:
-        srtp.ReplayWindow = saved
+    """The SRTP twins run each package's own SrtpContext/SrtcpContext
+    (gstpu_torch.net.srtp uses the port's ReplayWindow), and what each
+    packet met must be equal."""
+    obs = []
+    for name in NAMES:
+        P = QPkg(name)
+        srtp = P.mod("net.srtp")
+        assert srtp.ReplayWindow is P.ReplayWindow
+        obs.append(body(srtp))
     assert obs[1] == obs[0]
     return obs[1]
 
