@@ -252,7 +252,7 @@ of every kernel library in DIR and needs no card.)
    `rtspsrc2`, `mpegtslivesrc` and `rtpgccbwe` are named, not run.
 18. runs the HLS/DASH sinks, the HTTP source and QUIC of Queue D item 5
    between the card's chains and their audience, all on 127.0.0.1: (a)
-   BASELINE config 4's 1080p grade, 8 frames, `! cmafmux` in 2-frame
+   BASELINE config 4's 1080p grade, 4 frames, `! cmafmux` in 2-frame
    fragments teed into `hlscmafsink`, `dashsink2` and the video variant
    of an `hlsmultivariantsink`, 1 s of the flagship's 192 kHz F64
    stereo through a second `cmafmux` into its audio rendition, and 15a's
@@ -267,7 +267,7 @@ of every kernel library in DIR and needs no card.)
    MP4, host ms per second of audio by element and of each source alone;
    `fallbacksrc` with an http uri and `uriplaylistbin` with an http and
    a file item into the flagship, the samples within 1e-12 of the CPU
-   run's; (c) where `cryptography` imports: the grade, 4 frames, as RFC
+   run's; (c) where `cryptography` imports: the grade, 2 frames, as RFC
    4175 RTP at mtu 1200 through `quinnroqmux ! quinnquicsink
    use-datagram=true` into `quinnquicsrc ! quinnroqdemux !
    rtpvrawdepay2` (0 RTP packets lost, the frames the CPU run's), 1 s
@@ -280,13 +280,39 @@ of every kernel library in DIR and needs no card.)
    receiver every 32 buffers and, at EOS, until every packet is acked.
    QUIC packets a frame, losses and probes, fps and host ms by element.
    `icecastsink` is named, not run.
+19. runs the WebRTC elements of Queue D item 6 between the card's chains
+   and their peers, all on 127.0.0.1 (webrtc_phase says what each leg
+   holds against the CPU run): (a) the telephony leg in a live
+   `webrtcsink`/`webrtcsrc` session over the sink's own signalling
+   server; (b) the 1080p grade over SRTP keyed by a DTLS handshake; (c)
+   the telephony RTP through WHIP and WHEP; (d) the grade into
+   webrtcsink's encoder chain, only where the codec shim links.
+20. runs the cloud and model elements of Queue D items 7-8 behind the
+   card's chains, all on 127.0.0.1: (a) 5.5 s of the flagship through
+   `audioconvert ! audioresample` to 44.1 kHz F32 into `demucs
+   segment=5.0`, the model a seeded TorchScript separator moved to the
+   card (every parameter there), a full segment and the tail drained at
+   EOS on each stem, each within SEPARATE_TOL of the CPU run's; (b), (c)
+   only where `transformers` imports: the telephony leg at 16 kHz into
+   `whispertranscriber`, a random Whisper at whisper-tiny's widths, its
+   encoder's last hidden state within WHISPER_TOL of the CPU's, and two
+   prompts into `llamatexttransform` (a tiny GPT-2, greedy), its first
+   step's logits within LM_TOL, the texts printed with the first token
+   where card and CPU part; (d) the grade on 2 frames through `cmafmux`
+   into `awss3hlssink` against an S3 stand-in that takes only
+   SigV4-signed requests, and the telephony leg at 16 kHz S16 into
+   `deepgramtranscriber` against a WebSocket stand-in: objects, audio
+   frames and texts the CPU run's byte for byte, the grade read only by
+   `cmafmux`; (e) `python -m gstpu_torch.tools.docs_cache` lists 268
+   elements, its output the checked-in file.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
 of the analytics path, of the parallel layer, of the host edge, of the
-host codecs, of the captions, of the plumbing, of the network edge and
-of the distribution edge, the card's name and power limit, one
-JSON line of kernels and last `{"ok": true, "device": {...}}`. Any failed
+host codecs, of the captions, of the plumbing, of the network edge, of
+the distribution edge, of WebRTC and of the cloud and model elements,
+the card's name and power limit, one JSON line of kernels and last
+`{"ok": true, "device": {...}}`. Any failed
 phase raises, and the script then exits non-zero without that last line;
 so does a machine without CUDA or a directory without the gstpu_torch
 package.
@@ -514,11 +540,11 @@ NOT_ON_THE_CARD = {
 # grade's on two QUIC streams, and the telephony RTP over WebTransport.
 # The sender's probe on its QUIC sink drives the receiving pipeline every
 # RTP_PACE buffers, and at EOS until every packet in flight is acked.
-HLS_FRAMES, HLS_FRAGMENT_FRAMES, HLS_AUDIO_SECONDS = 8, 2, 1.0
+HLS_FRAMES, HLS_FRAGMENT_FRAMES, HLS_AUDIO_SECONDS = 4, 2, 1.0
 HLS_AUDIO_FRAGMENT = 500_000_000
 HLS_CAPTIONS = tuple(t for t, _ in CAPTIONS_608 + CAPTIONS_708 if t)
 HTTP_CLIP_SECONDS = 0.25
-QUIC_FRAMES, QUIC_STREAM_FRAMES, QUIC_MTU = 4, 1, 1200
+QUIC_FRAMES, QUIC_STREAM_FRAMES, QUIC_MTU = 2, 1, 1200
 NOT_ON_THE_CARD_18 = {
     "icecastsink": "takes only audio/mpeg, Ogg or AAC, and no element of "
                    "the port makes any of them from the card's audio; "
@@ -561,6 +587,37 @@ NOT_ON_THE_CARD_19 = {
     "NtpClock (RFC 7273 ts-refclk)": "needs an SNTP server; "
         "tests/test_torch_signalling.py holds it against gstpu's behind "
         "a stand-in server"}
+
+
+# the cloud and model elements behind the card (phase 20), all on
+# 127.0.0.1 and made from SEED: 20a SEPARATE_SECONDS of the flagship at
+# 192 kHz F64 stereo through audioconvert and audioresample to 44.1 kHz
+# F32 stereo into demucs (segment SEPARATE_SEGMENT s, its four stems
+# linked), the model a TorchScript StemSeparator (SEPARATOR_WIDTH
+# channels, SEPARATOR_TAPS taps); 20b 17a's telephony leg at 16 kHz mono
+# F32 into whispertranscriber, a random Whisper at whisper-tiny's published
+# widths (d_model, layers, heads, ffn); 20c LM_PROMPTS into
+# llamatexttransform, tests/test_viuer_compositor_llm.py's GPT-2, greedy;
+# 20d the grade on CLOUD_FRAMES 1080p frames through cmafmux (a fragment
+# a frame) into awss3hlssink, and 17a's telephony leg at 16 kHz S16 mono
+# into deepgramtranscriber, each against a stand-in service that answers
+# each STT_RESULT_BYTES of audio; 20e the docs cache tool. The
+# tolerances hold the card against the CPU, TF32 off, at about ten times
+# the largest gap measured on an H100: 1.5e-8 on a stem (peak 0.05),
+# 2.9e-6 on Whisper's encoder state (peak 3.56), 4.5e-8 on GPT-2's first
+# logits (peak 0.49).
+SEPARATE_SECONDS, SEPARATE_SEGMENT, SEPARATE_RATE = 5.5, 5.0, 44_100
+SEPARATE_STEMS = ("drums", "bass", "other", "vocals")
+SEPARATOR_WIDTH, SEPARATOR_TAPS = 32, 15
+SEPARATE_TOL = 2e-7
+SPEECH_RATE = 16_000
+WHISPER_WIDTHS = (384, 4, 6, 1536)
+WHISPER_TOL = 2e-5
+LM_PROMPTS, LM_TOKENS, LM_TOL = ("GRADED ON CARD", "SECOND WINDOW"), 8, 5e-7
+CLOUD_FRAMES, STT_RESULT_BYTES = 2, 16_000
+CLOUD_REGION, CLOUD_ACCESS, CLOUD_SECRET = ("eu-central-1", "CARDACCESSKEY",
+                                            "card/secret+key")
+FACTORIES = 268
 
 
 def log(*args) -> None:
@@ -6679,6 +6736,629 @@ def webrtc_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 20. the cloud and model elements of Queue D items 7-8
+# ---------------------------------------------------------------------------
+
+class StemSeparator(torch.nn.Module):
+    """A stand-in for a demucs model with demucs' tensor contract, (1, C,
+    T) -> (1, 4, C, T): two convolutions of SEPARATOR_TAPS taps and a 1x1
+    one give each stem a soft mask (a softmax over the four stems) that
+    scales the input. Its weights, drawn from `seed`, are registered
+    parameters, so `.to(device)` moves them."""
+
+    def __init__(self, channels: int = 2, seed: int = SEED):
+        super().__init__()
+        k = SEPARATOR_TAPS
+        self.conv1 = torch.nn.Conv1d(channels, SEPARATOR_WIDTH, k,
+                                     padding=k // 2)
+        self.conv2 = torch.nn.Conv1d(SEPARATOR_WIDTH, SEPARATOR_WIDTH, k,
+                                     padding=k // 2)
+        self.mask = torch.nn.Conv1d(SEPARATOR_WIDTH, 4 * channels, 1)
+        rng = np.random.default_rng(seed)
+        with torch.no_grad():
+            for p in self.parameters():
+                fan_in = p[0].numel() if p.dim() > 1 else p.numel()
+                p.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(p.shape)).astype(np.float32) / fan_in ** 0.5))
+
+    def forward(self, wav):
+        h = torch.relu(self.conv1(wav))
+        h = torch.relu(self.conv2(h))
+        m = self.mask(h).reshape(1, 4, wav.shape[1], wav.shape[2])
+        return torch.softmax(m, dim=1) * wav[:, None]
+
+
+def separator_file(path: Path) -> Path:
+    """StemSeparator scripted into a TorchScript file at `path`."""
+    torch.jit.script(StemSeparator()).save(str(path))
+    return path
+
+
+def whisper_model_dir(path: Path, d_model: int, layers: int, heads: int,
+                      ffn: int, seed: int = SEED) -> Path:
+    """A random-init WhisperForConditionalGeneration of these widths (80
+    mel bins) and its processor saved into `path`, in transformers'
+    format: tests/test_whisper.py's synthetic byte vocabulary with
+    Whisper's special tokens, the model's `vocab_size` set to it."""
+    from transformers import (WhisperConfig, WhisperFeatureExtractor,
+                              WhisperForConditionalGeneration,
+                              WhisperProcessor, WhisperTokenizer)
+    tok_dir = path / "tok"
+    tok_dir.mkdir(parents=True)
+    vocab = {chr(c): c - 33 for c in range(33, 127)}
+    specials = ["<|endoftext|>", "<|startoftranscript|>", "<|en|>",
+                "<|transcribe|>", "<|translate|>", "<|notimestamps|>",
+                "<|nospeech|>", "<|startofprev|>"]
+    for t in specials:
+        vocab[t] = len(vocab)
+    (tok_dir / "vocab.json").write_text(json.dumps(vocab))
+    (tok_dir / "merges.txt").write_text("#version: 0.2\n")
+    tok = WhisperTokenizer(str(tok_dir / "vocab.json"),
+                           str(tok_dir / "merges.txt"),
+                           unk_token="<|endoftext|>",
+                           bos_token="<|endoftext|>",
+                           eos_token="<|endoftext|>")
+    tok.add_special_tokens({"additional_special_tokens": specials})
+    cfg = WhisperConfig(
+        vocab_size=len(vocab), d_model=d_model, num_mel_bins=80,
+        decoder_start_token_id=vocab["<|startoftranscript|>"],
+        pad_token_id=vocab["<|endoftext|>"],
+        eos_token_id=vocab["<|endoftext|>"],
+        encoder_layers=layers, decoder_layers=layers,
+        encoder_attention_heads=heads, decoder_attention_heads=heads,
+        encoder_ffn_dim=ffn, decoder_ffn_dim=ffn,
+        max_source_positions=1500, max_target_positions=448,
+        suppress_tokens=[], begin_suppress_tokens=[])
+    torch.manual_seed(seed)
+    model = WhisperForConditionalGeneration(cfg)
+    out = path / "whisper"
+    model.save_pretrained(str(out))
+    WhisperProcessor(WhisperFeatureExtractor(), tok).save_pretrained(str(out))
+    return out
+
+
+def gpt2_model_dir(path: Path, seed: int = 0) -> Path:
+    """tests/test_viuer_compositor_llm.py's GPT-2 (a synthetic byte
+    vocabulary, n_embd 32, one layer, two heads), random-init from
+    `seed`, saved into `path` in transformers' format."""
+    from transformers import GPT2Config, GPT2LMHeadModel, GPT2TokenizerFast
+    path.mkdir(parents=True)
+    vocab = {chr(c): c - 33 for c in range(33, 127)}
+    vocab["<|endoftext|>"] = len(vocab)
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n")
+    tok = GPT2TokenizerFast(str(path / "vocab.json"),
+                            str(path / "merges.txt"),
+                            unk_token="<|endoftext|>",
+                            bos_token="<|endoftext|>",
+                            eos_token="<|endoftext|>")
+    cfg = GPT2Config(vocab_size=len(vocab), n_embd=32, n_layer=1,
+                     n_head=2, n_positions=256)
+    torch.manual_seed(seed)
+    GPT2LMHeadModel(cfg).save_pretrained(str(path))
+    tok.save_pretrained(str(path))
+    return path
+
+
+class ModelTaps:
+    """While the `with` block runs, each engine of the class `cls` made
+    (whisper's TransformersWhisper, llm's TransformersLm) is kept in
+    `engines`, and forward hooks on its model's submodules `names` keep
+    their outputs (a model output's first field), on the host, in
+    `out[name]`."""
+
+    def __init__(self, cls, names):
+        self.cls, self.names = cls, names
+        self.engines: list = []
+        self.out: dict = {n: [] for n in names}
+
+    def __enter__(self):
+        self._init = init = self.cls.__init__
+
+        def keep(name):
+            def hook(module, args, output) -> None:
+                if not isinstance(output, torch.Tensor):
+                    output = output[0]
+                self.out[name].append(output.detach().float().cpu())
+            return hook
+
+        def tapped(engine, *args, **kw):
+            init(engine, *args, **kw)
+            self.engines.append(engine)
+            for n in self.names:
+                engine.model.get_submodule(n).register_forward_hook(keep(n))
+
+        self.cls.__init__ = tapped
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.__init__ = self._init
+
+
+def model_devices(model) -> set:
+    """The device types of a module's parameters and buffers."""
+    return {t.device.type for t in itertools.chain(model.parameters(),
+                                                   model.buffers())}
+
+
+def first_divergence(card: list, cpu: list) -> dict | None:
+    """Two runs' logits a decoding step (each (.., V), the last position
+    read): at the first step whose greedy tokens differ, both tokens and
+    the CPU's and the card's gap between their top two logits; None where
+    every step picks the same token."""
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        a, b = a.reshape(-1, a.shape[-1])[-1], b.reshape(-1, b.shape[-1])[-1]
+        if int(a.argmax()) != int(b.argmax()):
+            ta, tb = a.topk(2).values, b.topk(2).values
+            return {"step": i, "card_token": int(a.argmax()),
+                    "cpu_token": int(b.argmax()),
+                    "cpu_top2_gap": float(tb[0] - tb[1]),
+                    "card_top2_gap": float(ta[0] - ta[1])}
+    return None
+
+
+def flagship_string() -> str:
+    """The flagship from appsrc `src` through its echo and loudness
+    normaliser, as phone_rtp_string begins."""
+    return phone_rtp_string().split(" ! audioresample")[0]
+
+
+def separate_string(model: Path) -> str:
+    """20a's string: the flagship through `audioconvert ! audioresample`
+    to 44.1 kHz F32 stereo into `demucs` `sep`."""
+    return (f"{flagship_string()} ! audioconvert name=conv ! audioresample "
+            f"name=res ! audio/x-raw, format=F32LE, rate={SEPARATE_RATE}, "
+            f"channels=2 ! demucs name=sep model-location={model} "
+            f"segment={SEPARATE_SEGMENT}")
+
+
+def separate(gstpu_torch, device: str, model: Path, seconds: float) -> dict:
+    """20a on `device`: `seconds` of edge_signal through separate_string,
+    an appsink named after each stem linked to its request pad. The
+    pipeline (in NULL), the wall seconds, each stem's samples (T, 2) and
+    each stem's buffers' (pts, duration)."""
+    make = importlib.import_module(
+        f"{gstpu_torch.__name__}.core.registry").make
+
+    def build(p) -> None:
+        sep = p.get_by_name("sep")
+        for stem in SEPARATE_STEMS:
+            sink = make("appsink", stem)
+            p.add(sink)
+            sep.request_pad(f"src_{stem}").link(sink.static_pad("sink"))
+
+    x = edge_signal(seconds, RATE_192K).astype(np.float64) / 32768.0
+    p, dt, out, _ = run_string(gstpu_torch, device, separate_string(model),
+                               SEPARATE_STEMS,
+                               feed_blocks(gstpu_torch, x, RATE_192K), build)
+    return {"pipe": p, "seconds": dt,
+            "stems": {s: np.concatenate([np.frombuffer(
+                b.to_bytes(), np.float32) for b in out[s]]).reshape(-1, 2)
+                for s in SEPARATE_STEMS},
+            "times": {s: [(b.pts, b.duration) for b in out[s]]
+                      for s in SEPARATE_STEMS}}
+
+
+def speech_string(fmt: str, tail: str) -> str:
+    """17a's telephony leg at SPEECH_RATE mono `fmt` into the string
+    `tail`."""
+    return (f"{flagship_string()} ! audioresample name=res ! audio/x-raw, "
+            f"rate={SPEECH_RATE} ! audioconvert name=conv ! audio/x-raw, "
+            f"format={fmt}, channels=1 ! {tail}")
+
+
+def transcribe(gstpu_torch, device: str, model: Path) -> dict:
+    """20b on `device`: PHONE_SECONDS of the telephony leg at 16 kHz mono
+    F32 into `whispertranscriber` with the model at `model`, under
+    ModelTaps on its encoder and its output projection. The pipeline, the
+    wall seconds, the texts, the encoder's last hidden state, the logits
+    a decoding step and the engine's model."""
+    whisper = importlib.import_module(
+        f"{gstpu_torch.__name__}.elements.audio.whisper")
+    x = edge_signal(PHONE_SECONDS, RATE_192K).astype(np.float64) / 32768.0
+    launch = speech_string("F32LE", f"whispertranscriber name=w model-path="
+                                    f"{model} ! appsink name=out")
+    with ModelTaps(whisper.TransformersWhisper,
+                   ("model.encoder", "proj_out")) as taps:
+        p, dt, out, _ = run_string(gstpu_torch, device, launch, ("out",),
+                                   feed_blocks(gstpu_torch, x, RATE_192K))
+    return {"pipe": p, "seconds": dt,
+            "texts": [b.to_bytes().decode() for b in out["out"]],
+            "encoder": taps.out["model.encoder"][0],
+            "logits": taps.out["proj_out"], "model": taps.engines[0].model}
+
+
+def rewrite(gstpu_torch, device: str, model: Path) -> dict:
+    """20c on `device`: LM_PROMPTS into `llamatexttransform` (greedy,
+    LM_TOKENS new tokens) with the model at `model`, under ModelTaps on
+    its head. The pipeline, the wall seconds, the replies, the logits a
+    decoding step and the engine's model."""
+    llm = importlib.import_module(f"{gstpu_torch.__name__}.elements.text.llm")
+    launch = ('appsrc name=src caps="text/x-raw, format=utf8" ! '
+              f'llamatexttransform name=lm model-path={model} temp=0.0 '
+              f'max-tokens={LM_TOKENS} ! appsink name=out')
+
+    def feed(p) -> None:
+        src = p.get_by_name("src")
+        for i, text in enumerate(LM_PROMPTS):
+            src.push_buffer(gstpu_torch.Buffer(
+                text.encode(), pts=i * 10 ** 9, duration=10 ** 9))
+        src.end_of_stream()
+
+    with ModelTaps(llm.TransformersLm, ("lm_head",)) as taps:
+        p, dt, out, _ = run_string(gstpu_torch, device, launch, ("out",),
+                                   feed)
+    return {"pipe": p, "seconds": dt,
+            "texts": [b.to_bytes().decode() for b in out["out"]],
+            "logits": taps.out["lm_head"], "model": taps.engines[0].model}
+
+
+class StandInS3:
+    """An S3 stand-in on 127.0.0.1 (a ThreadingHTTPServer on a thread,
+    shut down on leaving the `with` block): it keeps each PUT object that
+    carries a SigV4 Authorization header by its path in `objects`, counts
+    the PUTs and refuses whatever else comes. The signatures themselves
+    are held against AWS's published vectors in tests/test_torch_cloud.py."""
+
+    def __init__(self):
+        import http.server
+        self.objects: dict = {}
+        self.puts, self.refused = 0, 0
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args) -> None:
+                pass
+
+            def signed(self) -> bool:
+                return self.headers.get("Authorization", "").startswith(
+                    "AWS4-HMAC-SHA256 ")
+
+            def do_PUT(self) -> None:
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                if not self.signed():
+                    outer.refused += 1
+                    self.send_response(403)
+                else:
+                    outer.objects[self.path] = body
+                    outer.puts += 1
+                    self.send_response(200)
+                    self.send_header("ETag", '"put"')
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                   Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+
+    def __enter__(self):
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(10)
+
+
+class StandInStt:
+    """A Deepgram listen-API stand-in on 127.0.0.1: one WebSocket
+    connection served on a thread. It keeps the request line (`request`)
+    and every binary frame (`frames`), answers each STT_RESULT_BYTES of
+    audio with a final Results message ("dg<n>" over that stretch) and
+    CloseStream with the closing Metadata."""
+
+    def __init__(self, gstpu_torch):
+        import base64
+        import hashlib
+        import socket
+        sig = importlib.import_module(
+            f"{gstpu_torch.__name__}.net.webrtc.signalling")
+        self.sock = socket.create_server(("127.0.0.1", 0))
+        self.url = f"ws://127.0.0.1:{self.sock.getsockname()[1]}/v1/listen"
+        self.request, self.frames = b"", []
+
+        def serve() -> None:
+            conn, _ = self.sock.accept()
+            head = b""
+            while b"\r\n\r\n" not in head:
+                head += conn.recv(1)
+            self.request = head.split(b"\r\n", 1)[0]
+            key = next(line.split(b":", 1)[1].strip()
+                       for line in head.split(b"\r\n")
+                       if line.lower().startswith(b"sec-websocket-key"))
+            accept = base64.b64encode(hashlib.sha1(
+                key + b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11").digest())
+            conn.sendall(b"HTTP/1.1 101 Switching Protocols\r\nUpgrade: "
+                         b"websocket\r\nConnection: Upgrade\r\n"
+                         b"Sec-WebSocket-Accept: " + accept + b"\r\n\r\n")
+            audio = 0
+            while (msg := sig.ws_recv(conn)) is not None:
+                if msg.startswith(b"{"):
+                    if json.loads(msg).get("type") == "CloseStream":
+                        sig.ws_send(conn, json.dumps({
+                            "type": "Metadata",
+                            "transaction_key": "closed"}).encode())
+                    continue
+                self.frames.append(msg)
+                before, audio = audio, audio + len(msg)
+                step = STT_RESULT_BYTES / (SPEECH_RATE * 2)
+                for n in range(before // STT_RESULT_BYTES + 1,
+                               audio // STT_RESULT_BYTES + 1):
+                    sig.ws_send(conn, json.dumps({
+                        "type": "Results", "is_final": True,
+                        "channel": {"alternatives": [
+                            {"transcript": f"dg{n}"}]},
+                        "start": (n - 1) * step,
+                        "duration": step}).encode())
+            conn.close()
+
+        self.thread = threading.Thread(target=serve, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.thread.join(WEBRTC_LIMIT)
+        self.sock.close()
+
+
+def cloud_edge(gstpu_torch, device: str, cube: Path) -> dict:
+    """20d on `device`: the grade on CLOUD_FRAMES 1080p frames through
+    `cmafmux` (a fragment a frame) into `awss3hlssink` against a StandInS3,
+    and PHONE_SECONDS of the telephony leg at 16 kHz S16 mono into
+    `deepgramtranscriber` against a StandInStt. Both pipelines, their wall
+    seconds, the objects, PUTs and refusals the S3 stand-in saw, and the
+    request line, audio frames and texts of the speech leg."""
+    src, grade = grade_strings(EDGE_W, EDGE_H, CLOUD_FRAMES, cube)
+    with StandInS3() as s3:
+        hls, dt, _, _ = run_string(
+            gstpu_torch, device,
+            f"{src} ! {grade} ! cmafmux name=mux fragment-duration="
+            f"{10 ** 9 // 30} ! awss3hlssink name=s3 uri=s3://{CLOUD_REGION}"
+            f"/card/hls access-key={CLOUD_ACCESS} secret-access-key="
+            f"{CLOUD_SECRET} endpoint-uri={s3.url} target-duration=1")
+    stt = StandInStt(gstpu_torch)
+    x = edge_signal(PHONE_SECONDS, RATE_192K).astype(np.float64) / 32768.0
+    speech, stt_dt, out, _ = run_string(
+        gstpu_torch, device,
+        speech_string("S16LE", f"deepgramtranscriber name=dg url={stt.url} "
+                               f"api-key={CLOUD_ACCESS} ! appsink name=out"),
+        ("out",), feed_blocks(gstpu_torch, x, RATE_192K))
+    stt.close()
+    return {"pipes": {"hls": hls, "speech": speech}, "seconds": dt,
+            "stt_seconds": stt_dt, "objects": s3.objects, "puts": s3.puts,
+            "refused": s3.refused, "request": stt.request,
+            "frames": stt.frames,
+            "texts": [(b.to_bytes().decode(), b.pts, b.duration)
+                      for b in out["out"]]}
+
+
+def cloud_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
+    """20. Queue D items 7-8's elements behind the card's chains, all on
+    127.0.0.1: (a) the flagship separated by `demucs` on the card; (b)
+    the telephony leg transcribed by `whispertranscriber` and (c) text
+    rewritten by `llamatexttransform` on the card, only where
+    `transformers` imports; (d) the grade into `awss3hlssink` and the
+    telephony leg into `deepgramtranscriber`, against stand-ins; (e) the
+    docs cache tool. Each leg is held against the same on the CPU, or
+    against the checked-in file. Each kernel's launches in d."""
+    res, not_run = {}, {}
+    launches = {k.name: 0 for k in kernels}
+
+    # 20a
+    t0 = time.monotonic()
+    model = separator_file(tmp / "separator.pt")
+    a, tracer, _, _ = traced(kernels, lambda: separate(
+        gstpu_torch, "cuda", model, SEPARATE_SECONDS))
+    cpu = separate(gstpu_torch, "cpu", model, SEPARATE_SECONDS)
+    sep = a["pipe"].get_by_name("sep")
+    err = {s: float(np.abs(a["stems"][s] - cpu["stems"][s]).max())
+           for s in SEPARATE_STEMS}
+    r = res["demucs"] = {
+        "seconds_of_audio": SEPARATE_SECONDS,
+        "segment_s": SEPARATE_SEGMENT, "samples": {
+            s: len(v) for s, v in a["stems"].items()},
+        "model_devices": sorted(model_devices(sep._model)),
+        "cpu_model_devices": sorted(model_devices(
+            cpu["pipe"].get_by_name("sep")._model)),
+        "max_abs_err": err, "tolerance": SEPARATE_TOL,
+        "peak": float(max(np.abs(v).max() for v in cpu["stems"].values())),
+        "times_equal": a["times"] == cpu["times"],
+        "buffer_s": {s: [d / 10 ** 9 for _, d in v]
+                     for s, v in a["times"].items()},
+        "echo_output": tracer.payload.get(
+            a["pipe"].get_by_name("echo").static_pad("src")),
+        "model_params": sum(p.numel() for p in sep._model.parameters()),
+        "wall_s": a["seconds"], "cpu_wall_s": cpu["seconds"],
+        "host_ms_per_s": own_ms(tracer, a["pipe"], ["conv", "res", "sep"],
+                                SEPARATE_SECONDS),
+        "leg_s": time.monotonic() - t0}
+    log(f"[cloud] 20a: {SEPARATE_SECONDS} s of the flagship at 192 kHz "
+        f"stereo (the echo's output {r['echo_output']}) through audioconvert "
+        f"and audioresample to {SEPARATE_RATE} Hz F32 into demucs segment="
+        f"{SEPARATE_SEGMENT} ({r['model_params']}-parameter StemSeparator "
+        f"as TorchScript, on {r['model_devices']}; the CPU run's on "
+        f"{r['cpu_model_devices']}): samples a stem {r['samples']}, max "
+        f"|card - CPU| by stem {err} (peak {r['peak']:.4f}, tolerance "
+        f"{SEPARATE_TOL}, TF32 off), seconds a buffer {r['buffer_s']}, buffer "
+        f"times equal {r['times_equal']}; "
+        f"{a['seconds']:.3f} s on the card (tracer on), {cpu['seconds']:.3f} "
+        f"s on the CPU; host ms per second of audio {r['host_ms_per_s']}  "
+        f"[{smi}]")
+    if not (r["model_devices"] == ["cuda"] and r["cpu_model_devices"]
+            == ["cpu"] and r["times_equal"] and r["echo_output"]
+            == "tensor on cuda" and max(err.values()) <= SEPARATE_TOL
+            and r["samples"] == {s: len(v) for s, v in cpu["stems"].items()}
+            and all(abs(n - SEPARATE_SECONDS * SEPARATE_RATE) <= 16
+                    for n in r["samples"].values())
+            and all(len(v) == 2 and v[0] == SEPARATE_SEGMENT
+                    for v in r["buffer_s"].values())):
+        raise AssertionError(f"20a: {r}")
+
+    # 20b, 20c
+    if importlib.util.find_spec("transformers") is None:
+        for name, leg in (("whispertranscriber", "20b"),
+                          ("llamatexttransform", "20c")):
+            not_run[f"{name} ({leg})"] = (
+                "the `transformers` package does not import on this "
+                "machine; tests/test_torch_models.py holds it against "
+                "gstpu's, and its model and inputs on the CPU")
+    else:
+        t0 = time.monotonic()
+        model = whisper_model_dir(tmp / "whisper", *WHISPER_WIDTHS)
+        b, _, _, _ = traced(kernels, lambda: transcribe(
+            gstpu_torch, "cuda", model))
+        cpu = transcribe(gstpu_torch, "cpu", model)
+        enc = float((b["encoder"] - cpu["encoder"]).abs().max())
+        r = res["whisper"] = {
+            "widths": WHISPER_WIDTHS, "model_devices": sorted(
+                model_devices(b["model"])),
+            "encoder_shape": list(b["encoder"].shape),
+            "encoder_max_abs_err": enc, "tolerance": WHISPER_TOL,
+            "encoder_peak": float(cpu["encoder"].abs().max()),
+            "texts": b["texts"], "cpu_texts": cpu["texts"],
+            "steps": len(b["logits"]), "cpu_steps": len(cpu["logits"]),
+            "divergence": first_divergence(b["logits"], cpu["logits"]),
+            "wall_s": b["seconds"], "cpu_wall_s": cpu["seconds"],
+            "leg_s": time.monotonic() - t0}
+        log(f"[cloud] 20b: {PHONE_SECONDS} s of the telephony leg at "
+            f"{SPEECH_RATE} Hz mono F32 into whispertranscriber (random "
+            f"Whisper at d_model, layers, heads, ffn {WHISPER_WIDTHS}, on "
+            f"{r['model_devices']}): the encoder's last hidden state "
+            f"{r['encoder_shape']} within {enc:.3e} of the CPU's (peak "
+            f"{r['encoder_peak']:.3f}, tolerance {WHISPER_TOL}, TF32 off); "
+            f"texts {r['texts']!r} on the card, {r['cpu_texts']!r} on the "
+            f"CPU, {r['steps']} and {r['cpu_steps']} decoding steps, first "
+            f"divergence {r['divergence']}; {b['seconds']:.3f} s on the card"
+            f", {cpu['seconds']:.3f} s on the CPU  [{smi}]")
+        if not (r["model_devices"] == ["cuda"] and enc <= WHISPER_TOL
+                and model_devices(cpu["model"]) == {"cpu"}):
+            raise AssertionError(f"20b: {r}")
+        t0 = time.monotonic()
+        model = gpt2_model_dir(tmp / "gpt2")
+        c, _, _, _ = traced(kernels, lambda: rewrite(gstpu_torch, "cuda",
+                                                     model))
+        cpu = rewrite(gstpu_torch, "cpu", model)
+        first = float((c["logits"][0] - cpu["logits"][0]).abs().max())
+        r = res["llm"] = {
+            "model_devices": sorted(model_devices(c["model"])),
+            "first_step_max_abs_err": first, "tolerance": LM_TOL,
+            "first_step_peak": float(cpu["logits"][0].abs().max()),
+            "texts": c["texts"], "cpu_texts": cpu["texts"],
+            "divergence": first_divergence(c["logits"], cpu["logits"]),
+            "wall_s": c["seconds"], "cpu_wall_s": cpu["seconds"],
+            "leg_s": time.monotonic() - t0}
+        log(f"[cloud] 20c: {len(LM_PROMPTS)} prompts into llamatexttransform"
+            f" (tests/test_viuer_compositor_llm.py's GPT-2, greedy, "
+            f"{LM_TOKENS} tokens, on {r['model_devices']}): the first step's "
+            f"logits within {first:.3e} of the CPU's (peak "
+            f"{r['first_step_peak']:.3f}, tolerance {LM_TOL}); replies "
+            f"{r['texts']!r} on the card, {r['cpu_texts']!r} on the CPU, "
+            f"first divergence {r['divergence']}; {c['seconds']:.3f} s on "
+            f"the card, {cpu['seconds']:.3f} s on the CPU  [{smi}]")
+        if not (r["model_devices"] == ["cuda"] and first <= LM_TOL
+                and model_devices(cpu["model"]) == {"cpu"}):
+            raise AssertionError(f"20c: {r}")
+
+    # 20d
+    t0 = time.monotonic()
+    cube = tmp / "cloud.cube"
+    write_cube(cube, np.random.default_rng(SEED))
+    d, tracer, calls, n = traced(kernels, lambda: cloud_edge(
+        gstpu_torch, "cuda", cube))
+    cpu = cloud_edge(gstpu_torch, "cpu", cube)
+    hls = d["pipes"]["hls"]
+    r = res["cloud_edge"] = {
+        "frames": CLOUD_FRAMES, "objects": {
+            k: len(v) for k, v in d["objects"].items()},
+        "puts": d["puts"], "refused": d["refused"],
+        "objects_equal_to_cpu": d["objects"] == cpu["objects"],
+        "cpu_puts": cpu["puts"], "launches": n,
+        "array_calls": new_reads(calls, ("mux", "s3", "dg")),
+        "downloads": dict(calls.tensor_calls),
+        "grade_downloads": {k: v for k, v in calls.tensor_calls.items()
+                            if k in ("hsv", "lut", "mux", "s3")},
+        "mux_reads_by_frame": [calls.of("mux", i * 10 ** 9 // 30)
+                               for i in range(CLOUD_FRAMES)],
+        "grade_output": tracer.payload.get(
+            hls.get_by_name("mux").sink_pads()[0].peer),
+        "fps": CLOUD_FRAMES / d["seconds"], "cpu_wall_s": cpu["seconds"],
+        "host_ms_a_frame": own_ms(tracer, hls, ["mux", "s3"],
+                                  CLOUD_FRAMES),
+        "stt_request": d["request"].decode(),
+        "stt_frames": len(d["frames"]),
+        "stt_bytes": sum(map(len, d["frames"])),
+        "stt_frames_equal_to_cpu": d["frames"] == cpu["frames"],
+        "stt_request_equal_to_cpu": d["request"] == cpu["request"],
+        "stt_texts": d["texts"], "stt_texts_equal_to_cpu":
+            d["texts"] == cpu["texts"],
+        "stt_wall_s": d["stt_seconds"],
+        "host_ms_per_s": own_ms(tracer, d["pipes"]["speech"], ["res", "dg"],
+                                PHONE_SECONDS),
+        "leg_s": time.monotonic() - t0}
+    log(f"[cloud] 20d: {CLOUD_FRAMES} frames of {EDGE_W}x{EDGE_H} through "
+        f"the grade (reaching cmafmux as {r['grade_output']}) into cmafmux "
+        f"and awss3hlssink against the S3 stand-in: objects {r['objects']} "
+        f"from {r['puts']} signed PUTs ({r['refused']} refused), "
+        f"{'equal to' if r['objects_equal_to_cpu'] else 'DIFFERENT FROM'} "
+        f"the CPU run's; launches {n}; Buffer.array calls "
+        f"{r['array_calls']}, downloads {r['downloads']} (of the grade "
+        f"{r['grade_downloads']}), cmafmux's reads by frame "
+        f"{r['mux_reads_by_frame']}; {r['fps']:.3f} fps (tracer "
+        f"on), {cpu['seconds']:.3f} s on the CPU; host ms a frame "
+        f"{r['host_ms_a_frame']}. {PHONE_SECONDS} s of the telephony leg at "
+        f"{SPEECH_RATE} Hz S16 mono into deepgramtranscriber against the "
+        f"WebSocket stand-in ({r['stt_request']!r}): {r['stt_frames']} "
+        f"audio frames, {r['stt_bytes']} B, equal to the CPU run's "
+        f"{r['stt_frames_equal_to_cpu']}; texts {r['stt_texts']}, the CPU "
+        f"run's {r['stt_texts_equal_to_cpu']}; host ms per second of audio "
+        f"{r['host_ms_per_s']}  [{smi}]")
+    if not (r["objects_equal_to_cpu"] and r["refused"] == 0
+            and "/card/hls/playlist.m3u8" in d["objects"]
+            and sum(k.endswith(".m4s") for k in d["objects"])
+            == CLOUD_FRAMES and r["stt_frames_equal_to_cpu"]
+            and r["stt_request_equal_to_cpu"] and r["stt_texts_equal_to_cpu"]
+            and r["stt_bytes"] == round(PHONE_SECONDS * SPEECH_RATE) * 2
+            and len(d["texts"]) == r["stt_bytes"] // STT_RESULT_BYTES
+            and set(r["grade_downloads"]) == {"mux"}
+            and "s3" not in r["array_calls"]
+            and r["grade_output"] == "tensor on cuda"
+            and all(v == CLOUD_FRAMES for v in n.values())):
+        raise AssertionError(f"20d: {r}")
+    for k in kernels:
+        launches[k.name] += n[k.name]
+
+    # 20e
+    t0 = time.monotonic()
+    cache = tmp / "cache.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "gstpu_torch.tools.docs_cache", "-o",
+         str(cache)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    checked_in = ROOT / "docs" / "plugins" / "gstpu_torch_plugins_cache.json"
+    r = res["docs_cache"] = {
+        "rc": proc.returncode, "stdout": proc.stdout.strip(),
+        "elements": len(json.loads(cache.read_text())) if cache.exists()
+        else 0, "equal_to_checked_in": cache.exists()
+        and cache.read_bytes() == checked_in.read_bytes(),
+        "leg_s": time.monotonic() - t0}
+    log(f"[cloud] 20e: python -m gstpu_torch.tools.docs_cache: rc "
+        f"{r['rc']}, {r['stdout']!r}, {r['elements']} elements, equal to "
+        f"the checked-in {checked_in.relative_to(ROOT)}: "
+        f"{r['equal_to_checked_in']}; {r['leg_s']:.3f} s  [{smi}]")
+    if not (r["rc"] == 0 and r["elements"] == FACTORIES
+            and r["equal_to_checked_in"]):
+        raise AssertionError(f"20e: {r}; {proc.stderr[-2000:]}")
+
+    res["not_on_the_card"] = not_run
+    for name, why in not_run.items():
+        log(f"[cloud] not run on the card: {name}: {why}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -7099,12 +7779,20 @@ def main() -> int:
         webrtc = webrtc_phase(gstpu_torch, smi, Path(tmp), kernels)
     for row in rows:
         row["launches_webrtc"] = webrtc["launches"][row["name"]]
+    # 20. the cloud and model elements of Queue D items 7-8 behind the
+    # card's chains
+    t20 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        cloud = cloud_phase(gstpu_torch, smi, Path(tmp), kernels)
+    for row in rows:
+        row["launches_cloud"] = cloud["launches"][row["name"]]
     element["phase_s"].update({"8": t9 - t8, "9": t10 - t9, "10": t11 - t10,
                                "11": t12 - t11, "12": t13 - t12,
                                "13": t14 - t13, "14": t15 - t14,
                                "15": t16 - t15, "16": t17 - t16,
                                "17": t18 - t17, "18": t19 - t18,
-                               "19": time.monotonic() - t19})
+                               "19": t20 - t19,
+                               "20": time.monotonic() - t20})
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -7123,6 +7811,7 @@ def main() -> int:
     log(json.dumps({"rtp": rtp}))
     log(json.dumps({"distribution": dist}))
     log(json.dumps({"webrtc": webrtc}))
+    log(json.dumps({"cloud": cloud}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

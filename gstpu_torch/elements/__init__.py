@@ -1,4 +1,4 @@
-"""The port's element library: the modules ported so far.
+"""The port's element library: every module of gstpu's.
 
 Each module self-registers its elements via @register_element when
 imported, under the same factory names as in gstpu, into the port's
@@ -44,6 +44,7 @@ _MODULES = [
     "gstpu_torch.elements.utils_.uriplaylistbin",
     "gstpu_torch.elements.utils_.debugsei",
     "gstpu_torch.elements.text.textelements",
+    "gstpu_torch.elements.text.llm",
     "gstpu_torch.elements.analytics.analytics",
     "gstpu_torch.elements.audio.audiofx",
     "gstpu_torch.elements.audio.g711",
@@ -56,6 +57,10 @@ _MODULES = [
     "gstpu_torch.elements.audio.agingradio",
     "gstpu_torch.elements.audio.audioparsers",
     "gstpu_torch.elements.audio.opus",
+    "gstpu_torch.elements.audio.demucs",
+    "gstpu_torch.elements.audio.whisper",
+    "gstpu_torch.elements.audio.cloudstt",
+    "gstpu_torch.elements.audio.elevenlabs",
     "gstpu_torch.elements.mux.fmp4",
     "gstpu_torch.elements.mux.mpegts",
     "gstpu_torch.elements.mux.flvdemux",
@@ -70,7 +75,10 @@ _MODULES = [
     "gstpu_torch.elements.net.webrtcsink",
     "gstpu_torch.elements.net.httpsrc",
     "gstpu_torch.elements.net.quic",
+    "gstpu_torch.elements.net.aws",
+    "gstpu_torch.elements.net.aws_ai",
     "gstpu_torch.elements.net.janusvr",
+    "gstpu_torch.elements.net.aws_transcribe",
     "gstpu_torch.elements.net.ueps",
     "gstpu_torch.elements.net.awskvs",
     "gstpu_torch.elements.net.icecast",

@@ -9,10 +9,8 @@ work unchanged, and adds the remaining small utility elements
 (rssinesrc, rsrgb2gray, rsprogressbin, ts-input-selector,
 ts-clocksync, ts-rtpdtmfsrc, quinnroqmux/demux).
 
-The port's copy of gstpu/elements/generic/aliases.py, with the rows
-whose targets the port registers. gstpu's other row waits for its
-target (ROADMAP.md, Queue D): `llamacpp-texttransform` for the LLM text
-elements (item 7).
+The port's copy of gstpu/elements/generic/aliases.py. The port's
+`burn-yoloxinference` is registered by its analytics module itself.
 """
 
 from __future__ import annotations
@@ -68,6 +66,7 @@ for _new, _old in (
         ("rtpav1depay", "rtpav1depay2"),
         ("rtpsmpte291pay", "rtpsmpte291pay2"),
         ("rtpsmpte291depay", "rtpsmpte291depay2"),
+        ("llamacpp-texttransform", "llamatexttransform"),
 ):
     _alias(_new, _old)
 

@@ -13,7 +13,12 @@ handle_message / handle_disconnect return outgoing (peer_id, message)
 pairs); `serve_websocket` puts it behind a minimal RFC 6455 WebSocket
 front end for browser/JS-SDK clients.
 
-The port's copy of gstpu/net/webrtc/signalling.py, as it stands.
+The port's copy of gstpu/net/webrtc/signalling.py, with one departure:
+`SignallingClient.stop` ends its reader thread before it closes the
+socket. gstpu's closes the socket under a reader that may still be
+inside a read; a TLS socket's reads go to the descriptor's number, so
+that reader can take the bytes, even the handshake, of whichever socket
+is opened next under the same number.
 """
 
 from __future__ import annotations
@@ -370,20 +375,23 @@ class SignallingClient:
     def stop(self) -> None:
         self._stop.set()
         with self._lock:
-            if self._ws is not None:
-                try:
-                    self._ws.close()
-                except OSError:
-                    pass
-                self._ws = None
+            ws, self._ws = self._ws, None
+        if ws is None:
+            return
+        # the reader ends at its next poll, before the descriptor is
+        # freed for the next socket to take
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout=2.0)
+        ws.close()
 
     def _run(self) -> None:
         import socket as _socket
+        ws = self._ws
         first = True
         try:
             while not self._stop.is_set():
                 try:
-                    data = self._ws.recv(timeout=0.25)
+                    data = ws.recv(timeout=0.25)
                 except (TimeoutError, _socket.timeout):
                     continue
                 except OSError:

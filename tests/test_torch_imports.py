@@ -186,19 +186,26 @@ def test_import_loads_neither_jax_nor_gstpu():
 
 def test_register_all_imports_no_cryptography():
     """The QUIC, DTLS, SRTP and packet-protection modules need
-    `cryptography`, which a machine may lack: registering every element
-    imports none of it (the quinn elements import their connection when
-    they start, the WebRTC elements their transport, SRTP context and
-    signalling, and awskvswebrtcsink its SigV4 signer)."""
+    `cryptography`, which a machine may lack, and the model elements
+    `transformers`, which the card's machine lacks: registering every
+    element imports neither (the quinn elements import their connection
+    when they start, the WebRTC elements their transport, SRTP context
+    and signalling, the AWS elements and awskvswebrtcsink their SigV4
+    signer and S3 client, the cloud speech elements their WebSocket
+    client, whispertranscriber and llamatexttransform their engine, and
+    demucs loads its model with torch.jit when it gets caps)."""
     code = ("import sys, gstpu_torch\n"
             "gstpu_torch.init(device='cpu')\n"
             "from gstpu_torch.core.registry import list_factories\n"
             "assert {'quinnquicsink', 'webrtcsink', 'webrtcsrc', "
             "'webrtcsend', 'webrtcrecv', 'whipsink', 'whepsrc', "
-            "'janusvrwebrtcsink', 'uepswebrtcsink', 'awskvswebrtcsink'} "
+            "'janusvrwebrtcsink', 'uepswebrtcsink', 'awskvswebrtcsink', "
+            "'awss3sink', 'awstranscriber', 'deepgramtranscriber', "
+            "'whispertranscriber', 'llamatexttransform', 'demucs'} "
             "<= set(list_factories())\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] == "
-            "'cryptography' or m.startswith('gstpu_torch.net.quic.') "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ("
+            "'cryptography', 'transformers') "
+            "or m.startswith('gstpu_torch.net.quic.') "
             "or m.startswith('gstpu_torch.net.webrtc') or m in ("
             "'gstpu_torch.net.srtp', 'gstpu_torch.net.ws', "
             "'gstpu_torch.net.webserver', 'gstpu_torch.net.rtp.twcc', "
@@ -315,26 +322,34 @@ def test_port_has_its_own_registry():
              "janusvrwebrtcsrc", "uepswebrtcsink", "awskvswebrtcsink")
     assert len(set(item6)) == 14
     names += item6
+    # the cloud and model elements of Queue D item 7, and their alias row
+    item7 = ("awss3src", "awss3sink", "awss3putobjectsink", "awss3hlssink",
+             "awstranscriber", "awstranscriber2", "awstranscribeparse",
+             "awstranslate", "awspolly", "deepgramtranscriber",
+             "speechmaticstranscriber", "whispertranscriber",
+             "elevenlabssynthesizer", "elevenlabsvoicecloner", "demucs",
+             "llamatexttransform", "llamacpp-texttransform")
+    assert len(set(item7)) == 17
+    names += item7
     for name in names:
         port, ref = element_factory(name), jax_factory(name)
         assert port is not ref
         assert port.__module__.startswith("gstpu_torch.")
         assert ref.__module__.startswith("gstpu.")
         assert element_rank(name) == jax_rank(name), name
-    assert set(names) <= set(list_factories())
-    assert len(list_factories()) == 251
-    # gstpu's 268 less the cloud and model elements of Queue D item 7
+    # the mock elements that tests register in this process
+    # (test_cccombiner.py leaves its own in gstpu's registry) not counted
     from gstpu.core.registry import list_factories as jax_factories
-    missing = {
-        "awss3src", "awss3sink", "awss3putobjectsink", "awss3hlssink",
-        "awstranscriber", "awstranscriber2", "awstranscribeparse",
-        "awstranslate", "awspolly", "deepgramtranscriber",
-        "speechmaticstranscriber", "whispertranscriber",
-        "elevenlabssynthesizer", "elevenlabsvoicecloner", "demucs",
-        "llamatexttransform", "llamacpp-texttransform"}
-    assert len(missing) == 17
-    assert set(jax_factories()) - set(list_factories()) == missing
-    assert set(list_factories()) <= set(jax_factories())
+    port_names = {n for n in list_factories()
+                  if element_factory(n).__module__.startswith("gstpu_torch.")}
+    jax_names = {n for n in jax_factories()
+                 if jax_factory(n).__module__.startswith("gstpu.")}
+    assert set(names) <= port_names
+    assert len(port_names) == 268
+    # all of gstpu's 268: nothing of gstpu is missing from the port
+    missing = jax_names - port_names
+    assert missing == set()
+    assert port_names == jax_names
     # the ONVIF payloaders are ported beside the converters: the port's
     # classes, from the module the converters import their names from
     from gstpu_torch.elements.net import onvif
@@ -406,18 +421,18 @@ def test_rsaudioecho_has_no_context_block():
 
 
 def test_port_aws_holds_only_what_awskvs_needs():
-    """`gstpu_torch.net.aws` was brought forward from Queue D item 7 for
-    awskvswebrtcsink alone: it holds the package and SigV4, not S3 or the
-    event stream; awskvs imports only SigV4's two signers from it, and
-    they sign as gstpu's do."""
+    """`gstpu_torch.net.aws` came forward for awskvswebrtcsink with SigV4
+    alone; the cloud elements brought S3 and the event stream, so it now
+    holds every module of gstpu's `net/aws`. awskvs still imports only
+    SigV4's two signers from it, and they sign as gstpu's do."""
     import ast
     from datetime import datetime, timezone
 
     from gstpu.net.aws import sigv4 as ref
     from gstpu_torch.net.aws import sigv4
     aws = ROOT / "gstpu_torch" / "net" / "aws"
-    assert sorted(p.name for p in aws.glob("*.py")) == ["__init__.py",
-                                                         "sigv4.py"]
+    assert sorted(p.name for p in aws.glob("*.py")) == [
+        "__init__.py", "eventstream.py", "s3.py", "sigv4.py"]
     assert sorted(p.name for p in (ROOT / "gstpu" / "net" / "aws")
                   .glob("*.py")) == ["__init__.py", "eventstream.py",
                                      "s3.py", "sigv4.py"]

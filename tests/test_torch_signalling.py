@@ -17,6 +17,7 @@ SDK tree is absent. A standalone signalling server of the port runs as
 import json
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -133,3 +134,59 @@ def test_signalling_server_module_runs():
          "m.split('.')[0] in ('jax', 'gstpu')))"],
         cwd=TESTS.parent, capture_output=True, text=True, timeout=120)
     assert mods.stdout.strip() == "[]", mods.stderr
+
+
+class _Producer:
+    """The element side of a signalling client: registers as a producer."""
+
+    def signalling_connect(self, welcome):
+        return [{"type": "setPeerStatus", "roles": ["producer"],
+                 "meta": {}}]
+
+    def handle_signalling(self, msg):
+        return []
+
+
+def test_signalling_client_stop_ends_its_reader(tmp_path):
+    """The port's one departure in signalling.py (ROADMAP Queue C,
+    Deliberate): over wss://, `SignallingClient.stop` ends its reader
+    thread at the reader's next poll, and only then sends the close
+    frame and closes the socket; the server has dropped the peer. Three
+    sessions in a row, each client's socket opened at once after the last
+    one closed, so under the descriptor it freed.
+    gstpu's stop closes the socket under a reader that may still be
+    inside a read of it."""
+    import ssl
+
+    from cryptography.hazmat.primitives import serialization
+
+    from gstpu_torch.net.webrtc.dtls import generate_certificate
+    from gstpu_torch.net.webrtc.signalling import (SignallingClient,
+                                                   SignallingServer)
+    key, cert = generate_certificate("127.0.0.1")
+    cp, kp = tmp_path / "cert.pem", tmp_path / "key.pem"
+    cp.write_bytes(cert.public_bytes(serialization.Encoding.PEM))
+    kp.write_bytes(key.private_bytes(
+        serialization.Encoding.PEM, serialization.PrivateFormat.PKCS8,
+        serialization.NoEncryption()))
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    ctx.load_verify_locations(cp)
+    ctx.check_hostname = False
+    for _ in range(3):
+        server = SignallingServer(cert=str(cp), key=str(kp))
+        server.start()
+        try:
+            client = SignallingClient(f"wss://127.0.0.1:{server.port}",
+                                      _Producer(), ssl_ctx=ctx)
+            client.start()
+            assert client.connected.wait(60)
+            assert client._thread.is_alive() and server.core._peers
+            client.stop()
+            assert not client._thread.is_alive()
+            assert client._ws is None
+            deadline = time.monotonic() + 60
+            while server.core._peers and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert not server.core._peers
+        finally:
+            server.stop()

@@ -32,6 +32,7 @@ import importlib
 import inspect
 import re
 import sys
+import threading
 import types
 from pathlib import Path
 
@@ -222,14 +223,30 @@ def _skip_marks(fn) -> None:
             pytest.skip(mark.kwargs.get("reason", "skipif"))
 
 
+def _end_signalling_readers(before: set) -> None:
+    """Stop the signalling clients started since `before` (webrtcsrc's
+    NULL leaves its own running, ROADMAP Queue C) and wait until their
+    reader threads have ended. gstpu's client closes its socket under a
+    reader that may still be inside a read, and a TLS read goes to the
+    descriptor's number: left running, that reader could take the bytes
+    of the next half's socket opened under the same number."""
+    for t in set(threading.enumerate()) - before:
+        target = getattr(t, "_target", None)
+        if getattr(target, "__qualname__", "") == "SignallingClient._run":
+            target.__self__.stop()
+            t.join(timeout=5.0)
+
+
 def _call(mod, package: str, test: str, tmp: Path) -> dict:
     """Run `mod`'s test `test` on `package`, its arguments from `mod`'s
     own fixtures, `tmp_path` (`tmp`) and `monkeypatch`, the payloaders'
     random draws (RFC 3550's SSRC, first sequence number and timestamp)
-    seeded alike for both packages; the locals it returns with."""
+    seeded alike for both packages; the locals it returns with. The
+    signalling clients it started have ended when it returns."""
     fn = getattr(mod, test)
     _skip_marks(fn)
     tmp.mkdir(parents=True, exist_ok=True)
+    before = set(threading.enumerate())
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(f"{package}.net.rtp.basepay.random", _SeededRandom())
         built: dict = {"tmp_path": tmp, "monkeypatch": mp}
@@ -255,6 +272,7 @@ def _call(mod, package: str, test: str, tmp: Path) -> dict:
         finally:
             for gen in reversed(finalizers):
                 next(gen, None)
+            _end_signalling_readers(before)
 
 
 def twin(module: str, test: str, tmp_path: Path, vary=()) -> dict:
