@@ -320,6 +320,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import importlib.util
 import itertools
@@ -862,10 +863,9 @@ def audio_bounds(B: int, C: int) -> dict:
     return {k: (v, v / HBM_BYTES_PER_S * 1e3) for k, v in by.items()}
 
 
-def device_events(fn, n: int):
-    """Run fn n times under torch.profiler. Returns the device-side
-    events (kernels, copies, and the ranges that are mirrored on the
-    device) and the wall time of the n runs in seconds."""
+def profiled(fn, n: int):
+    """Run fn n times under torch.profiler; the profile and the wall
+    time of the n runs in seconds."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -875,8 +875,49 @@ def device_events(fn, n: int):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def device_events(fn, n: int):
+    """Run fn n times under torch.profiler. Returns the device-side
+    events (kernels, copies, and the ranges that are mirrored on the
+    device) and the wall time of the n runs in seconds."""
+    prof, wall = profiled(fn, n)
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA], wall
+
+
+@contextlib.contextmanager
+def program_spans(device: bool = False):
+    """The program's span tracer (gstpu_torch.utils.tracing.ProgramSpans)
+    installed and keeping intervals for the block; `device` adds each
+    device span's interval on the card."""
+    from gstpu_torch.utils import tracing
+    spans = tracing.ProgramSpans(device=device)
+    spans.install()
+    spans.keep(True)
+    try:
+        yield spans
+    finally:
+        spans.uninstall()
+
+
+def stage_busy_ms(prof, spans, n: int) -> dict:
+    """Device busy ms a step inside each device span's interval of the
+    tracer, from the profiler's kernels and copies: the tracer's
+    perf_counter times go onto the profiler's (wall) clock by one
+    offset."""
+    off = time.time_ns() - time.perf_counter_ns()
+    ops = [(e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation()]
+    busy: dict = {}
+    for a, b, name, _id, _req in spans.device_intervals():
+        a, b = a + off, b + off
+        busy[name] = busy.get(name, 0) + sum(
+            max(0, min(e1, b) - max(e0, a)) for e0, e1 in ops)
+    return {k.removeprefix("chain."): v / 1e6 / n for k, v in busy.items()}
 
 
 def audio_banks(dev):
@@ -927,7 +968,6 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
             lane0.append(out[0].clone())
     torch.cuda.synchronize()
 
-    ln.LIMITER_LOOP.iterations = 0
     t0 = time.perf_counter()
     for i in range(AUDIO_TIMED):
         state, out, meters = step(state, bank[i % AUDIO_BANK], *args)
@@ -935,7 +975,6 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rt = B * AUDIO_TIMED * 0.1 / wall
-    loops = ln.LIMITER_LOOP.iterations / AUDIO_TIMED
     shortterm = meters["shortterm"]
     if out.shape != (B, n_step) or not bool(torch.isfinite(out).all()) \
             or not bool(torch.isfinite(shortterm).all()):
@@ -943,67 +982,49 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     st_mean = float(shortterm.double().mean())
     log(f"[audio] {B} streams x {AUDIO_TIMED} steps of 100 ms in "
         f"{wall * 1e3:.3f} ms: {rt:.2f}x realtime; the host enqueued "
-        f"them in {enqueue * 1e3:.3f} ms; prime {prime_s:.3f} s; limiter "
-        f"loop {loops} iterations a step; fused meter mean short-term "
-        f"{st_mean:.4f} LUFS (target -24)  [{smi}]")
+        f"them in {enqueue * 1e3:.3f} ms; prime {prime_s:.3f} s; fused "
+        f"meter mean short-term {st_mean:.4f} LUFS (target -24)  [{smi}]")
 
-    # each stage of a step: CUDA events and the host clock at the
-    # stage marks, over 5 steps (medians)
+    # each stage of a step on the program's tracer, over 5 steps
+    # (medians): the card's time between the events recorded where its
+    # span opens and closes, the host's in the span; and the limiter
+    # loop's iterations a step
+    with program_spans(device=True) as spans:
+        for i in range(5):
+            state, out, meters = step(state, bank[i % AUDIO_BANK], *args)
+        torch.cuda.synchronize()
     dev_ms = {k: [] for k in STAGES}
     host_ms = {k: [] for k in STAGES}
-    for i in range(5):
-        marks = []
-
-        def mark(name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            marks.append((name, e, time.perf_counter()))
-
-        mark("start")
-        state, out, meters = step(state, bank[i % AUDIO_BANK], *args,
-                                  mark=mark)
-        torch.cuda.synchronize()
-        for (_, e0, h0), (name, e1, h1) in zip(marks, marks[1:]):
-            dev_ms[name].append(e0.elapsed_time(e1))
-            host_ms[name].append((h1 - h0) * 1e3)
+    for a, b, name, _id, _req in spans.device_intervals():
+        dev_ms[name.removeprefix("chain.")].append((b - a) / 1e6)
+    for a, b, name, *_ in spans.intervals():
+        if name.removeprefix("chain.") in host_ms:
+            host_ms[name.removeprefix("chain.")].append((b - a) / 1e6)
     stage_ms = {k: statistics.median(v) for k, v in dev_ms.items()}
     stage_host_ms = {k: statistics.median(v) for k, v in host_ms.items()}
+    sums = spans.snapshot()
+    loops = sums["counters"]["limiter.iterations"] / 5
+    wait_ms = sums["total_ns"]["limiter.wait"] / 5e6
     log("[audio] stage ms a step, device (host): " + ", ".join(
-        f"{k} {stage_ms[k]:.3f} ({stage_host_ms[k]:.3f})" for k in STAGES))
+        f"{k} {stage_ms[k]:.3f} ({stage_host_ms[k]:.3f})" for k in STAGES)
+        + f"; limiter loop {loops} iterations a step, the host waiting "
+        f"{wait_ms:.3f} ms a step on its tests")
 
     # a profiler window of 3 steps: the kernels launched, the device's
-    # busy share, and each stage's kernel time (a profiler range per
-    # stage, closed and the next opened at each mark; the ranges are
-    # mirrored on the device, where they bound each stage's kernels)
+    # busy share, and each stage's kernel time (the profiler's device
+    # operations inside the tracer's device intervals of the stage)
     frames = itertools.cycle(bank)
 
     def profiled_step():
         nonlocal state
-        ranges = [torch.profiler.record_function(
-            f"audio_stage_{STAGES[0]}")]
-        ranges[0].__enter__()
+        state = step(state, next(frames), *args)[0]
 
-        def pmark(name):
-            ranges[-1].__exit__(None, None, None)
-            if len(ranges) < len(STAGES):
-                ranges.append(torch.profiler.record_function(
-                    f"audio_stage_{STAGES[len(ranges)]}"))
-                ranges[-1].__enter__()
-
-        state = step(state, next(frames), *args, mark=pmark)[0]
-
-    on_dev, window = device_events(profiled_step, 3)
-    spans = [e for e in on_dev if e.name.startswith("audio_stage_")]
-    kern = [e for e in on_dev if not e.name.startswith("audio_stage_")]
+    with program_spans(device=True) as spans:
+        prof, window = profiled(profiled_step, 3)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    stage_busy = {}
-    for k in STAGES:
-        mine = [(r.time_range.start, r.time_range.end)
-                for r in spans if r.name == f"audio_stage_{k}"]
-        stage_busy[k] = sum(
-            e.time_range.elapsed_us() for e in kern
-            if any(a <= e.time_range.start < b for a, b in mine)) / 3e3 \
-            if mine else None
+    stage_busy = stage_busy_ms(prof, spans, 3)
     profile = {"kernels_per_step": len(kern) / 3,
                "busy_ms_per_step": busy_ms / 3 if kern else None,
                "wall_ms_per_step": window * 1e3 / 3,
@@ -1030,12 +1051,13 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     for where in (dev, torch.device("cpu")):
         st2, o = prime(init(2, device=where), x2[0].to(where), *args)
         outs, trace = [o.cpu()], [decisions(st2)]
-        ln.LIMITER_LOOP.iterations = 0
-        for k in range(AUDIO_LIMITER_STEPS):
-            st2, o, _ = step(st2, x2[k + 1].to(where), *args)
-            outs.append(o.cpu())
-            trace.append(decisions(st2))
-        runs.append((outs, trace, ln.LIMITER_LOOP.iterations))
+        with program_spans() as spans:
+            for k in range(AUDIO_LIMITER_STEPS):
+                st2, o, _ = step(st2, x2[k + 1].to(where), *args)
+                outs.append(o.cpu())
+                trace.append(decisions(st2))
+        runs.append((outs, trace,
+                     spans.snapshot()["counters"]["limiter.iterations"]))
     (card_outs, card_trace, card_loops), (cpu_outs, cpu_trace, _) = runs
     cpu_diff = max(float((a - b).abs().max())
                    for a, b in zip(card_outs, cpu_outs))
@@ -1111,7 +1133,8 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     return {"B": B, "channels": C, "rt": rt, "wall_ms": wall * 1e3,
             "enqueue_ms": enqueue * 1e3, "prime_s": prime_s,
             "stage_ms": stage_ms, "stage_host_ms": stage_host_ms,
-            "limiter_iterations_per_step": loops, "profile": profile,
+            "limiter_iterations_per_step": loops,
+            "limiter_wait_ms_per_step": wait_ms, "profile": profile,
             "shortterm_mean_lufs": st_mean,
             "lane0_b1_vs_b96_max_abs_diff": lane_diff,
             "card_vs_cpu_max_abs_diff": cpu_diff,

@@ -20,6 +20,7 @@ from gstpu_torch.core.element import (Bus, Element, Message, MessageType, State,
 from gstpu_torch.core.query import LatencyQuery
 from gstpu_torch.runtime.scheduler import Context, Task, TaskState
 from gstpu_torch.utils.log import debug_category
+from gstpu_torch.utils.tracing import span
 
 CAT = debug_category("pipeline")
 
@@ -167,10 +168,12 @@ class Pipeline(Bin):
 
     # -- dataflow driving --------------------------------------------
     def iterate(self) -> bool:
-        """Run one scheduler round; returns True if work was done."""
+        """Run one scheduler round (a span `pipeline.iterate`); returns
+        True if work was done."""
         if self._ctx is None:
             return False
-        return self._ctx.iterate()
+        with span("pipeline.iterate"):
+            return self._ctx.iterate()
 
     def run(self, timeout: float | None = 60.0) -> None:
         """Drive dataflow until EOS or error (non-live pipelines)."""

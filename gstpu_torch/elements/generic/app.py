@@ -17,6 +17,7 @@ from gstpu_torch.core.element import (FlowError, FlowReturn, PadDirection,
                                 PadPresence, PadTemplate)
 from gstpu_torch.core.props import Mutability, Property
 from gstpu_torch.core.registry import Rank, register_element
+from gstpu_torch.utils.tracing import span
 
 
 @register_element("appsrc", Rank.NONE)
@@ -34,7 +35,8 @@ class AppSrc(PushSrc):
         self._eos = False
 
     def push_buffer(self, buf: Buffer) -> None:
-        self._q.append(buf)
+        with span("appsrc.push", buf.pts):
+            self._q.append(buf)
 
     def end_of_stream(self) -> None:
         self._eos = True
@@ -83,6 +85,7 @@ class AppSink(BaseSink):
         return self.samples.popleft() if self.samples else None
 
     def pull_all(self) -> list[Buffer]:
-        out = list(self.samples)
-        self.samples.clear()
+        with span("appsink.pull"):
+            out = list(self.samples)
+            self.samples.clear()
         return out

@@ -10,8 +10,10 @@ block state-space biquads of gstpu_torch.ops.biquad.
 What differs from the JAX module, and why:
 * torch runs eagerly, so the limiter's `lax.while_loop` is a Python
   loop that asks the device once per iteration whether any stream is
-  still short of the frame's end (`LIMITER_LOOP` counts them), and
-  the fixed-trip scans are Python loops;
+  still short of the frame's end (the host waits for that answer in a
+  span `limiter.wait`; the counter `limiter.iterations` counts the
+  iterations, gstpu_torch.utils.tracing), and the fixed-trip scans are
+  Python loops;
 * `nsub_in`, `nsub_out` and `gidx` are the same for every stream; JAX
   holds them as device scalars, the port as host ints, so the
   `lax.cond`s on them (`nsub >= 4`, the final step's `k < 29`) cost no
@@ -42,6 +44,7 @@ import torch
 from gstpu_torch.ops.biquad import (_tree_sum_last, biquad_coeffs_highpass,
                                     biquad_coeffs_shelving,
                                     make_block_biquad)
+from gstpu_torch.utils.tracing import count, span
 
 F64 = torch.float64
 I32 = torch.int32
@@ -67,18 +70,8 @@ REL_GATE_FACTOR = 10.0 ** (-10.0 / 10.0)
 # gstpu): the same for every stream
 HOST_INTS = ("nsub_in", "nsub_out", "gidx")
 
-# inner_step's stages, in order, as it names them to `mark`
+# inner_step's stages, in order: each runs in a span `chain.<stage>`
 STEP_STAGES = ("meas_in", "fill", "limiter", "meas_out", "gain")
-
-
-class LoopCount:
-    """Iterations of the limiter's segment loop, summed over calls."""
-
-    def __init__(self):
-        self.iterations = 0
-
-
-LIMITER_LOOP = LoopCount()
 
 
 def _gaussian_weights() -> np.ndarray:
@@ -481,14 +474,20 @@ def _limiter_frame(params: LoudnormParams, lim, gr0, gr1, lstate,
 
         return G, n_gr0, n_gr1, n_ls, n_env, n_sus, n_smp
 
+    def short(smp) -> bool:
+        """Whether any stream is short of nb: the host waits for the
+        card's answer."""
+        with span("limiter.wait"):
+            return bool((smp < nb).any())
+
     G = torch.ones((B, FRAME), dtype=F64, device=dev)
     smp = torch.zeros(B, dtype=I32, device=dev)
     # the loop steps every stream until the slowest one is done; a
     # stream that is done keeps its state (every select falls through)
-    while bool((smp < nb).any()):
+    while short(smp):
         G, gr0, gr1, lstate, env_cnt, sus, smp = body(
             G, gr0, gr1, lstate, env_cnt, sus, smp)
-        LIMITER_LOOP.iterations += 1
+        count("limiter.iterations")
 
     genv = G[:, :, None].expand(B, FRAME, C).reshape(B, FRAME * C)
     head = lim[:, :FRAME * C] * genv
@@ -671,13 +670,12 @@ def make_steps(params: LoudnormParams, with_meter: bool = False):
 
     first_step(state, src (B, GAIN_LOOKAHEAD*C)) -> (state, out
       (B, FRAME*C))  — the 3 s priming frame (process_first_frame).
-    inner_step(state, src (B, FRAME*C), mark=None) -> (state, out
-      (B, FRAME*C)) — the steady-state 100 ms frame
-      (process_inner_frame).
+    inner_step(state, src (B, FRAME*C)) -> (state, out (B, FRAME*C))
+      — the steady-state 100 ms frame (process_inner_frame).
 
     src is interleaved f64; the steps run on its device. inner_step
-    calls mark(stage) after each of its stages (STEP_STAGES), where
-    mark is given.
+    runs each of its stages (STEP_STAGES) in a device span
+    `chain.<stage>` (gstpu_torch.utils.tracing).
 
     with_meter=True fuses a downstream `ebur128level` into the step:
     the output measurement runs unconditionally (it is the meter, one
@@ -742,30 +740,26 @@ def make_steps(params: LoudnormParams, with_meter: bool = False):
             return st, out, _out_meters(st)
         return st, out
 
-    def inner_step(st, src, mark=None):
+    def inner_step(st, src):
         """process_inner_frame (imp.rs:447-530 + 532-610)."""
-        def stage(name):
-            if mark is not None:
-                mark(name)
-
-        st = meas_in_frame(st, src)
-        stage("meas_in")
-        st = dict(st, lim=_fill(st, C, FRAME),
-                  dbuf=_shift_in(st["dbuf"], src))
-        stage("fill")
-        st, out = _run_limiter(params, st, FRAME)
-        stage("limiter")
-        if with_meter:
-            # fused ebur128level: the output chain is the meter
-            st2 = _meas_out(measure, st, out)
-            meters = _out_meters(st2)
-        elif bool((~st["above"]).any()):
-            st2 = _meas_out(measure, st, out)
-        else:
-            st2 = st
-        stage("meas_out")
-        st2 = _gain_update(params, window_energy, st2)
-        stage("gain")
+        with span("chain.meas_in", device=True):
+            st = meas_in_frame(st, src)
+        with span("chain.fill", device=True):
+            st = dict(st, lim=_fill(st, C, FRAME),
+                      dbuf=_shift_in(st["dbuf"], src))
+        with span("chain.limiter", device=True):
+            st, out = _run_limiter(params, st, FRAME)
+        with span("chain.meas_out", device=True):
+            if with_meter:
+                # fused ebur128level: the output chain is the meter
+                st2 = _meas_out(measure, st, out)
+                meters = _out_meters(st2)
+            elif bool((~st["above"]).any()):
+                st2 = _meas_out(measure, st, out)
+            else:
+                st2 = st
+        with span("chain.gain", device=True):
+            st2 = _gain_update(params, window_energy, st2)
         if with_meter:
             return st2, out, meters
         return st2, out

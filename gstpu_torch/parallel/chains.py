@@ -16,6 +16,8 @@ a target and a tanh ceiling.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -28,8 +30,10 @@ from gstpu_torch.ops.fftconv import next_pow2, ols_block
 from gstpu_torch.ops.loudnorm_dev import (FRAME, GAIN_LOOKAHEAD,
                                           STEP_STAGES, LoudnormParams,
                                           init_state, make_steps)
+from gstpu_torch.utils.tracing import span
 
-# the stages of the chain's step, in order, as it names them to `mark`
+# the stages of the chain's step, in order: each runs in a span
+# `chain.<stage>` inside the step's `chain.step`
 STAGES = ("echo",) + STEP_STAGES
 
 
@@ -59,11 +63,13 @@ def make_audiofx_exact_chain(channels: int = 2, echo_delay: int = 48_000,
       init(batch, device="cuda") -> state
       prime(state, x (B, 30*19200*C), intensity, feedback)
           -> (state, first out (B, 19200*C))
-      step(state, x (B, 19200*C), intensity, feedback, mark=None)
+      step(state, x (B, 19200*C), intensity, feedback)
           -> (state, out, meters{momentary, shortterm} (B,) LUFS)
     The steps run on the device of the state and x; intensity and
-    feedback are Python floats. step calls mark(stage) after each of
-    its STAGES where mark is given.
+    feedback are Python floats. A step runs in a span `chain.step`
+    whose request is the step's number (from 1, over this chain's
+    calls), each of its STAGES in a device span `chain.<stage>`
+    (gstpu_torch.utils.tracing).
     echo_delay/max_delay are in flattened (interleaved) samples.
     """
     params = LoudnormParams(channels=channels)
@@ -80,12 +86,14 @@ def make_audiofx_exact_chain(channels: int = 2, echo_delay: int = 48_000,
         ln, out, _meters = first_step(state["ln"], y)
         return dict(tail=tail, ln=ln), out
 
-    def step(state, x, intensity, feedback, mark=None):
-        tail, y = echo_block(state["tail"], x, intensity, feedback,
-                             delay=echo_delay)
-        if mark is not None:
-            mark("echo")
-        ln, out, meters = inner_step(state["ln"], y, mark=mark)
+    steps = itertools.count(1)
+
+    def step(state, x, intensity, feedback):
+        with span("chain.step", next(steps)):
+            with span("chain.echo", device=True):
+                tail, y = echo_block(state["tail"], x, intensity, feedback,
+                                     delay=echo_delay)
+            ln, out, meters = inner_step(state["ln"], y)
         return dict(tail=tail, ln=ln), out, meters
 
     n_prime = GAIN_LOOKAHEAD * C

@@ -74,6 +74,7 @@ import torch
 from gstpu_torch.core.buffer import Buffer
 from gstpu_torch.core.device import default_device
 from gstpu_torch.utils.log import debug_category
+from gstpu_torch.utils.tracing import count, span
 
 CAT = debug_category("devicebatch")
 
@@ -518,38 +519,40 @@ class DeviceContext:
         a DeviceRow of a shared bank) at the chain's head element. The
         `metas` of a buffer that is exactly one block go to the output
         made from it."""
-        m = self.member_for(element)
-        if metas is not None:
-            m.metas.append([x.copy() for x in metas])
-        if _is_device(samples):
-            n = _numel(samples.shape)
-            if m.pts is None and pts is not None:
-                m.pts = pts - m.dev_avail * SECOND // max(rate, 1)
-            m.dtype = _np_dtype(samples.dtype)
-            m.rate = rate
-            m.dev_rows.append(samples)
-            m.dev_avail += n
-        else:
-            if m.pts is None and pts is not None:
-                m.pts = pts - (len(m.pending) // samples.dtype.itemsize
-                               * SECOND // max(rate, 1))
-            m.dtype = samples.dtype
-            m.rate = rate
-            m.pending.extend(samples.tobytes())
-        # incremental gate: a fire needs EVERY active chain ready, so
-        # only this member's own readiness can have changed here; try_fire
-        # recounts exactly whenever it scans, so the mirror can never
-        # wedge the context
-        c = m.chain
-        if (c is not None and self.chains is not None
-                and not self._has_unfinalized and m.active):
-            now = self._avail(m) >= self._need(c)
-            if now != m.ready:
-                m.ready = now
-                self._n_ready += 1 if now else -1
-            if self._n_ready < self._n_active:
-                return
-        self.try_fire()
+        with span("context.submit", pts):
+            m = self.member_for(element)
+            if metas is not None:
+                m.metas.append([x.copy() for x in metas])
+            if _is_device(samples):
+                n = _numel(samples.shape)
+                if m.pts is None and pts is not None:
+                    m.pts = pts - m.dev_avail * SECOND // max(rate, 1)
+                m.dtype = _np_dtype(samples.dtype)
+                m.rate = rate
+                m.dev_rows.append(samples)
+                m.dev_avail += n
+            else:
+                if m.pts is None and pts is not None:
+                    m.pts = pts - (len(m.pending)
+                                   // samples.dtype.itemsize
+                                   * SECOND // max(rate, 1))
+                m.dtype = samples.dtype
+                m.rate = rate
+                m.pending.extend(samples.tobytes())
+            # incremental gate: a fire needs EVERY active chain ready,
+            # so only this member's own readiness can have changed here;
+            # try_fire recounts exactly whenever it scans, so the mirror
+            # can never wedge the context
+            c = m.chain
+            if (c is not None and self.chains is not None
+                    and not self._has_unfinalized and m.active):
+                now = self._avail(m) >= self._need(c)
+                if now != m.ready:
+                    m.ready = now
+                    self._n_ready += 1 if now else -1
+                if self._n_ready < self._n_active:
+                    return
+            self.try_fire()
 
     def _avail(self, m: _Member) -> int:
         if m.dev_rows:
@@ -647,7 +650,10 @@ class DeviceContext:
         """The (B, ...) input of a fire, on the device its rows lie on:
         every row of one bank as the bank itself, tensor rows stacked
         where they lie, host rows stacked and uploaded once to
-        default_device(). Raises if the rows lie on different devices."""
+        default_device(). Raises if the rows lie on different devices.
+        A stack or upload adds its rows and bytes to the counters
+        `context.stacked_rows` and `context.stacked_bytes`; a bank taken
+        whole adds nothing."""
         devs = {_canon(default_device()) if isinstance(r, np.ndarray)
                 else r.device for r in rows}
         if len(devs) != 1:
@@ -655,12 +661,13 @@ class DeviceContext:
                              f"{sorted(map(str, devs))}")
         dev = devs.pop()
         r0 = rows[0]
-        if isinstance(r0, DeviceRow) \
-                and all(isinstance(r, DeviceRow) and r.parent is r0.parent
-                        for r in rows) \
-                and r0.parent.shape[0] == len(rows) \
-                and r0.n == _numel(r0.parent.shape[1:]) \
-                and all(r.idx == i for i, r in enumerate(rows)):
+        bank = isinstance(r0, DeviceRow) \
+            and all(isinstance(r, DeviceRow) and r.parent is r0.parent
+                    for r in rows) \
+            and r0.parent.shape[0] == len(rows) \
+            and r0.n == _numel(r0.parent.shape[1:]) \
+            and all(r.idx == i for i, r in enumerate(rows))
+        if bank:
             x = r0.parent             # rows 0..B-1 of one bank: no copy
         elif all(isinstance(r, np.ndarray) for r in rows):
             host = np.stack([r.astype(cdtype, copy=False) for r in rows])
@@ -678,116 +685,124 @@ class DeviceContext:
                     return t.reshape(sshape)
                 return t.reshape(-1) if not sshape and t.dim() > 1 else t
             x = torch.stack([row(r) for r in rows])
+        if not bank:
+            count("context.stacked_rows", len(rows))
+            count("context.stacked_bytes", x.numel() * x.element_size())
         if sshape and x.dim() == 2:
             x = x.reshape((x.shape[0],) + sshape)
         return x
 
     def _fire(self, ready: list[_Chain]) -> None:
-        priming = not ready[0].primed
-        n = self.block * (self._prime_blocks() if priming else 1)
-        step, prime, n_stages, _final = self._fused
-        specs = [s.spec for s in ready[0].stages]
+        with span("context.fire", self.fire_count + 1):
+            priming = not ready[0].primed
+            n = self.block * (self._prime_blocks() if priming else 1)
+            step, prime, n_stages, _final = self._fused
+            specs = [s.spec for s in ready[0].stages]
 
-        rows, metas, dev_in = [], [], False
-        for c in ready:
-            h = c.head
-            row, is_dev = self._take_input(h, n)
-            dev_in = dev_in or is_dev
-            pts = h.pts
-            if pts is not None:
-                h.pts = pts + n * SECOND // max(h.rate, 1)
-            if c.out_pts is None:
-                c.out_pts = pts
-            rows.append(row)
-            metas.append((c, pts))
+            rows, metas, dev_in = [], [], False
+            for c in ready:
+                h = c.head
+                row, is_dev = self._take_input(h, n)
+                dev_in = dev_in or is_dev
+                pts = h.pts
+                if pts is not None:
+                    h.pts = pts + n * SECOND // max(h.rate, 1)
+                if c.out_pts is None:
+                    c.out_pts = pts
+                rows.append(row)
+                metas.append((c, pts))
 
-        # video specs declare their native sample rank: the batch is
-        # carried as (B, *sample_shape) end to end
-        sshape = tuple(specs[0].get("sample_shape") or ())
-        x = self._batch(rows, sshape,
-                        specs[0].get("compute_dtype", np.float64))
+            # video specs declare their native sample rank: the batch is
+            # carried as (B, *sample_shape) end to end
+            sshape = tuple(specs[0].get("sample_shape") or ())
+            x = self._batch(rows, sshape,
+                            specs[0].get("compute_dtype", np.float64))
 
-        ids = tuple(id(c) for c in ready)
-        if self._batched is not None and self._batched[0] == ids:
-            states = self._batched[1]
-        else:
-            self._writeback()
-            states = tuple(self._stack_states(ready, j)
-                           for j in range(n_stages))
-        uni_vals = tuple(tuple(c.stages[j].spec["uniforms"]()
-                               for c in ready)
-                         for j in range(n_stages))
-        key = (ids, uni_vals, x.device)
-        if self._uni_cache is not None and self._uni_cache[0] == key:
-            unis = self._uni_cache[1]
-        else:
-            def uniform(vals):
-                # lane-uniform values pass as the Python value (what
-                # the steps take, e.g. echo_block's floats)
-                if len(set(vals)) == 1:
-                    return vals[0]
-                return torch.as_tensor(
-                    np.asarray(vals, np.float64)[:, None], device=x.device)
-            unis = tuple(tuple(uniform(u) for u in zip(*uni_vals[j]))
-                         for j in range(n_stages))
-            self._uni_cache = (key, unis)
-        fn = prime if priming else step
-        states, out, aux = fn(states, x, unis)
-        self._batched = (ids, states)
-        aux = [AuxView(a) if isinstance(a, dict) else a for a in aux]
-        for c in ready:
-            c.primed = True
-        # keep the incremental readiness mirror exact: the fired heads
-        # just consumed a block (and may have flipped primed, which
-        # changes their need)
-        for c in ready:
-            h = c.head
-            now = h.active and self._avail(h) >= self._need(c)
-            if now != h.ready:
-                h.ready = now
-                self._n_ready += 1 if now else -1
-        self.fire_count += 1
-        CAT.log(f"context {self.name}: fired batch of {len(ready)} "
-                f"chains x {n} ({'prime' if priming else 'step'}, "
-                f"total {self.fire_count})")
-        packet = (out, aux, metas, dev_in)
-        if self.depth <= 1:
-            self._distribute(*packet)
-        else:
-            prev, self._pending_fire = self._pending_fire, packet
-            if prev is not None:
-                self._distribute(*prev)
+            ids = tuple(id(c) for c in ready)
+            if self._batched is not None and self._batched[0] == ids:
+                states = self._batched[1]
+            else:
+                self._writeback()
+                states = tuple(self._stack_states(ready, j)
+                               for j in range(n_stages))
+            uni_vals = tuple(tuple(c.stages[j].spec["uniforms"]()
+                                   for c in ready)
+                             for j in range(n_stages))
+            key = (ids, uni_vals, x.device)
+            if self._uni_cache is not None and self._uni_cache[0] == key:
+                unis = self._uni_cache[1]
+            else:
+                def uniform(vals):
+                    # lane-uniform values pass as the Python value (what
+                    # the steps take, e.g. echo_block's floats)
+                    if len(set(vals)) == 1:
+                        return vals[0]
+                    return torch.as_tensor(
+                        np.asarray(vals, np.float64)[:, None],
+                        device=x.device)
+                unis = tuple(tuple(uniform(u) for u in zip(*uni_vals[j]))
+                             for j in range(n_stages))
+                self._uni_cache = (key, unis)
+            fn = prime if priming else step
+            states, out, aux = fn(states, x, unis)
+            self._batched = (ids, states)
+            aux = [AuxView(a) if isinstance(a, dict) else a for a in aux]
+            for c in ready:
+                c.primed = True
+            # keep the incremental readiness mirror exact: the fired heads
+            # just consumed a block (and may have flipped primed, which
+            # changes their need)
+            for c in ready:
+                h = c.head
+                now = h.active and self._avail(h) >= self._need(c)
+                if now != h.ready:
+                    h.ready = now
+                    self._n_ready += 1 if now else -1
+            self.fire_count += 1
+            CAT.log("context %s: fired batch of %d chains x %d (%s, "
+                    "total %d)", self.name, len(ready), n,
+                    "prime" if priming else "step", self.fire_count)
+            packet = (out, aux, metas, dev_in, self.fire_count)
+            if self.depth <= 1:
+                self._distribute(*packet)
+            else:
+                prev, self._pending_fire = self._pending_fire, packet
+                if prev is not None:
+                    self._distribute(*prev)
 
-    def _distribute(self, out, aux, metas, device: bool) -> None:
+    def _distribute(self, out, aux, metas, device: bool,
+                    fire: int | None = None) -> None:
         """Hand each lane its output (a DeviceRow of `out` for device
         input: no copy, no synchronisation; host rows for host input)
-        and its meter values."""
-        out_n = _numel(out.shape[1:])
-        host = None if device else out.cpu().numpy()
-        for i, (c, _pts) in enumerate(metas):
-            if not c.head.active:
-                continue
-            # per-stage aux (metering) to the owning elements: every
-            # member folded into the stage gets an offer (a fused
-            # loudnorm+ebur stage's meters belong to the ebur element)
-            for j, stg in enumerate(c.stages):
-                if aux[j] is None:
+        and its meter values; `fire` is the number of the fire that made
+        them."""
+        with span("context.distribute", fire):
+            out_n = _numel(out.shape[1:])
+            host = None if device else out.cpu().numpy()
+            for i, (c, _pts) in enumerate(metas):
+                if not c.head.active:
                     continue
-                for m in stg.members:
-                    if hasattr(m.element, "consume_batch_aux"):
-                        m.element.consume_batch_aux(aux[j], i,
-                                                    c.out_pts, out_n)
-            tail = c.tail
-            dur = out_n * SECOND // max(c.head.rate, 1)
-            pts = c.out_pts
-            if pts is not None:
-                c.out_pts = pts + dur
-            payload = DeviceRow(out, i) if device \
-                else host[i].astype(c.head.dtype, copy=False)
-            buf = tail.element.make_batch_buffer(payload, pts, dur)
-            if c.head.metas:
-                buf.metas = c.head.metas.popleft()
-            tail.element.srcpad.push(buf)
+                # per-stage aux (metering) to the owning elements: every
+                # member folded into the stage gets an offer (a fused
+                # loudnorm+ebur stage's meters belong to the ebur element)
+                for j, stg in enumerate(c.stages):
+                    if aux[j] is None:
+                        continue
+                    for m in stg.members:
+                        if hasattr(m.element, "consume_batch_aux"):
+                            m.element.consume_batch_aux(aux[j], i,
+                                                        c.out_pts, out_n)
+                tail = c.tail
+                dur = out_n * SECOND // max(c.head.rate, 1)
+                pts = c.out_pts
+                if pts is not None:
+                    c.out_pts = pts + dur
+                payload = DeviceRow(out, i) if device \
+                    else host[i].astype(c.head.dtype, copy=False)
+                buf = tail.element.make_batch_buffer(payload, pts, dur)
+                if c.head.metas:
+                    buf.metas = c.head.metas.popleft()
+                tail.element.srcpad.push(buf)
 
     # -- EOS / flush ------------------------------------------------------
     def flush_pending(self) -> None:

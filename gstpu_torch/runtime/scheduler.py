@@ -204,7 +204,7 @@ class Context:
             self._thread.start()
 
     def _thread_loop(self) -> None:
-        CAT.log(f"context {self.name}: thread up")
+        CAT.log("context %s: thread up", self.name)
         while not self._stop.is_set():
             worked = self.iterate()
             if not worked:

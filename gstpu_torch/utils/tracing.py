@@ -8,15 +8,51 @@ or programmatically via install().
 
 Built-ins: queue-levels, pad-push-timings, buffer-lateness,
 pcap-writer, memory-tracer, chrome-tracer, fmt-tracer, torch-profiler,
-pipeline-snapshot (DOT dump helper).
+program-spans, pipeline-snapshot (DOT dump helper).
+
+Spans and counters inside the program: `span(name, request=None)` is a
+context manager and `count(name, n=1)` adds to a counter. They record
+into the installed `program-spans` tracer (`ProgramSpans`); with none
+installed a site costs one module-level check and records nothing.
+    GSTPU_TRACERS="program-spans(file=/tmp/spans.json,device=1)"
+keeps every span from install on and writes them as Chrome-trace JSON
+(chrome://tracing, ui.perfetto.dev) at `flush_all()`; `device=1` adds
+each stage's interval on the card. Times are `time.perf_counter_ns()`,
+the clock a benchmark's host spans use. Nothing installs it by default,
+so a run that does not ask for it carries only the sites' checks;
+perfbench does not install it (PERF.md §7 says what would). The sites:
+
+Spans (request in brackets; a span without one takes its parent's):
+* `chain.step` (step number, from 1): `parallel/chains.py`, a call of
+  the exact chain's `step`; inside it one device span a stage of
+  `chains.STAGES`, in order: `chain.echo` there, and `chain.meas_in`,
+  `chain.fill`, `chain.limiter`, `chain.meas_out`, `chain.gain` in
+  `ops/loudnorm_dev.py` `inner_step`;
+* `limiter.wait`: `ops/loudnorm_dev.py` `_limiter_frame`, the host
+  waiting for the card's answer to the segment loop's test;
+* `context.submit` (buffer pts), `context.fire` (fire number),
+  `context.distribute` (the number of the fire distributed):
+  `runtime/device_batch.py` `DeviceContext`;
+* `pipeline.iterate`: `core/bin.py` `Pipeline.iterate`;
+  `appsrc.push` (buffer pts), `appsink.pull`:
+  `elements/generic/app.py` `push_buffer`, `pull_all`.
+Counters:
+* `limiter.iterations`: the segment loop's iterations;
+* `context.stacked_rows`, `context.stacked_bytes`: the rows and bytes
+  `DeviceContext._batch` stacks or uploads into a fire's batch (a bank
+  of rows taken whole adds nothing).
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import os
 import re
 import struct
+import threading
 import time
+from collections import defaultdict
 from typing import Any, Callable
 
 _hooks: dict[str, list[Callable]] = {}
@@ -239,7 +275,6 @@ class ChromeTracer(Tracer):
         })
 
     def flush(self) -> None:
-        import json
         with open(self.file, "w") as f:
             json.dump({"traceEvents": self._events,
                        "displayTimeUnit": "ns"}, f)
@@ -338,6 +373,307 @@ class TorchProfilerTracer(Tracer):
         self._prof = None
 
 
+# -- spans and counters inside the program ---------------------------------
+
+_program: "ProgramSpans | None" = None
+
+
+class _NoSpan:
+    """What a span site gets where no program-spans tracer is
+    installed."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, request=None, device: bool = False):
+    """A span of the program, `with span(...):`. `name` is
+    `<layer>.<what>`; `request` ties the span to one request (a step, a
+    fire, a buffer's pts), and a span without one takes its parent's;
+    `device` marks a stage whose work on the card the tracer times where
+    it is installed with `device` on. Records nothing where no
+    program-spans tracer is installed."""
+    p = _program
+    if p is None:
+        return _NO_SPAN
+    return _Span(p._local.th, name, request, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the program's counter `name`, where a program-spans
+    tracer is installed."""
+    p = _program
+    if p is not None:
+        p.count(name, n)
+
+
+class _Thread:
+    """One thread's open spans and what it recorded. Only its own thread
+    writes it (but `reset`), so the span sites take no lock."""
+
+    __slots__ = ("tracer", "stack", "names", "layers", "sums",
+                 "layer_sums", "counters", "intervals", "samples",
+                 "device")
+
+    def __init__(self, tracer: "ProgramSpans"):
+        self.tracer = tracer
+        self.stack: list = []        # the open spans, innermost last
+        self.names: list = []        # their names
+        self.layers: list = []       # their layers
+        self.clear()
+
+    def clear(self) -> None:
+        self.sums: dict = {}         # name -> [total_ns, self_ns, calls]
+        self.layer_sums: dict = {}   # layer -> [ns, calls]
+        self.counters: dict = {}
+        self.intervals: list = []
+        self.samples: list = []
+        self.device: list = []
+
+
+class _Local(threading.local):
+    def __init__(self, tracer: "ProgramSpans"):
+        self.th = _Thread(tracer)
+        with tracer._lock:
+            tracer._threads.append(self.th)
+
+
+class _Span:
+    __slots__ = ("th", "name", "layer", "request", "device", "id",
+                 "parent", "t0", "child_ns", "ev0", "outer", "outer_layer")
+
+    def __init__(self, th: _Thread, name: str, request, device: bool):
+        self.th, self.name = th, name
+        self.request, self.device = request, device
+
+    def __enter__(self):
+        th, name = self.th, self.name
+        tr = th.tracer
+        layer = tr._layer_of.get(name)
+        if layer is None:
+            layer = tr._layer_of[name] = name.partition(".")[0]
+        self.layer = layer
+        stack = th.stack
+        parent = stack[-1] if stack else None
+        self.parent = parent
+        if self.request is None and parent is not None:
+            self.request = parent.request
+        self.outer = name not in th.names
+        self.outer_layer = layer not in th.layers
+        stack.append(self)
+        th.names.append(name)
+        th.layers.append(layer)
+        self.child_ns = 0
+        self.ev0 = None
+        if tr.keeping:
+            self.id = next(tr._ids)
+            if self.device and tr.device:
+                self.ev0 = tr._mark()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        th, name = self.th, self.name
+        tr = th.tracer
+        ev1 = tr._mark() if self.ev0 is not None else None
+        th.stack.pop()
+        th.names.pop()
+        th.layers.pop()
+        dur = t1 - self.t0
+        parent = self.parent
+        if parent is not None:
+            parent.child_ns += dur
+        v = th.sums.get(name)
+        if v is None:
+            v = th.sums[name] = [0, 0, 0]
+        v[1] += dur - self.child_ns
+        if self.outer:
+            v[0] += dur
+            v[2] += 1
+        if self.outer_layer:
+            v = th.layer_sums.get(self.layer)
+            if v is None:
+                v = th.layer_sums[self.layer] = [0, 0]
+            v[0] += dur
+            v[1] += 1
+        if tr.keeping:
+            th.intervals.append(
+                (self.t0, t1, name, self.id,
+                 parent.id if parent is not None else 0, self.request,
+                 threading.get_ident()))
+            if ev1 is not None:
+                th.device.append((self.ev0, ev1, name, self.id,
+                                  self.request))
+        return False
+
+
+class ProgramSpans(Tracer):
+    """`program-spans`: sums, counters and, while asked, intervals of the
+    program's spans (`span`, `count`), on `time.perf_counter_ns()`.
+
+    For each span name it sums the time and calls of its outermost spans
+    (a name nested in itself counts once) and the self time of all of
+    them (a span's duration less its children's); for each layer (the
+    name up to its first dot) the time and calls of the layer's
+    outermost spans, so `context.fire` inside `context.submit` counts
+    once. `snapshot()` adds up every thread's. A span's parent is the
+    innermost span open on its own thread.
+
+    Intervals (start_ns, end_ns, name, id, parent id, request, thread)
+    and counter samples (each thread's running count) are kept between
+    `keep(True)` and `keep(False)`, or from the start where `file` is
+    given; `flush()` writes them to `file` as Chrome-trace JSON. With
+    `device` on, a span opened with device=True while intervals are kept
+    records a timing event on the current CUDA stream where it opens and
+    where it closes: `device_intervals()` gives its work on the card in
+    stream order, on the host clock through an anchor event taken on an
+    idle card when keeping starts. Without CUDA the work is done when
+    each call returns, and the host times stand in.
+
+    Each thread records into its own sums, so the span sites take no
+    lock; `reset` and `snapshot` are exact while no other thread is
+    inside a span."""
+
+    SUMS = ("total_ns", "self_ns", "calls", "layer_ns", "layer_calls",
+            "counters")
+
+    def __init__(self, file: str | None = None, device=False):
+        super().__init__(file=file, device=device)
+        self.file = file or None
+        self.device = str(device).lower() in ("1", "true", "yes", "on")
+        self.keeping = False
+        self._lock = threading.Lock()
+        self._threads: list[_Thread] = []
+        self._local = _Local(self)
+        self._layer_of: dict[str, str] = {}
+        self._ids = itertools.count(1)
+        self._cuda = None           # (torch.cuda, anchor event, its ns)
+        if self.file:
+            self.keep(True)
+
+    def install(self) -> None:
+        """Make this the tracer that `span` and `count` record into."""
+        global _program
+        super().install()
+        _program = self
+
+    def uninstall(self) -> None:
+        global _program
+        super().uninstall()
+        if _program is self:
+            _program = None
+
+    def _each(self) -> list[_Thread]:
+        with self._lock:
+            return list(self._threads)
+
+    def reset(self) -> None:
+        """Clear every sum, counter, interval and sample."""
+        for th in self._each():
+            th.clear()
+
+    def keep(self, on: bool = True) -> None:
+        """Start (True) or stop keeping intervals, counter samples and
+        device events; the sums are kept either way."""
+        if on and not self.keeping and self.device:
+            self._anchor()
+        self.keeping = bool(on)
+
+    def _anchor(self) -> None:
+        import torch
+        if not torch.cuda.is_available():
+            self._cuda = None
+            return
+        torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ev.synchronize()
+        self._cuda = (torch.cuda, ev, time.perf_counter_ns())
+
+    def _mark(self):
+        """A device boundary: a timing event on the current stream, or
+        the host's time where there is no card."""
+        if self._cuda is None:
+            return time.perf_counter_ns()
+        ev = self._cuda[0].Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def count(self, name: str, n: int = 1) -> None:
+        th = self._local.th
+        v = th.counters.get(name, 0) + n
+        th.counters[name] = v
+        if self.keeping:
+            th.samples.append((time.perf_counter_ns(), name, v))
+
+    def snapshot(self) -> dict:
+        """{sum: {name: int}} for each of SUMS, over every thread."""
+        out = {k: defaultdict(int) for k in self.SUMS}
+        for th in self._each():
+            for name, (total, own, calls) in list(th.sums.items()):
+                if calls:
+                    out["total_ns"][name] += total
+                    out["calls"][name] += calls
+                out["self_ns"][name] += own
+            for layer, (ns, calls) in list(th.layer_sums.items()):
+                out["layer_ns"][layer] += ns
+                out["layer_calls"][layer] += calls
+            for name, v in list(th.counters.items()):
+                out["counters"][name] += v
+        return {k: dict(v) for k, v in out.items()}
+
+    def intervals(self) -> list:
+        """The kept spans, (start_ns, end_ns, name, id, parent id,
+        request, thread), by thread in the order they closed."""
+        return [iv for th in self._each() for iv in th.intervals]
+
+    def device_intervals(self) -> list:
+        """(start_ns, end_ns, name, id, request) of each device span's
+        work on the card, on the host clock; waits for the card."""
+        kept = [d for th in self._each() for d in th.device]
+        if self._cuda is None or not kept:
+            return kept
+        cuda, anchor, t = self._cuda
+        cuda.synchronize()
+
+        def host(ev) -> int:
+            return t + round(anchor.elapsed_time(ev) * 1e6)
+        return [(host(a), host(b), n, i, r) for a, b, n, i, r in kept]
+
+    def chrome_trace(self) -> dict:
+        """The kept spans, device intervals and counter samples as a
+        Chrome-trace document (times in us)."""
+        pid = os.getpid()
+        events = [{"name": n, "ph": "X", "cat": n.partition(".")[0],
+                   "ts": a / 1e3, "dur": (b - a) / 1e3, "pid": pid,
+                   "tid": tid, "args": {"id": i, "parent": p,
+                                        "request": r}}
+                  for a, b, n, i, p, r, tid in self.intervals()]
+        events += [{"name": n, "ph": "X", "cat": "device", "ts": a / 1e3,
+                    "dur": (b - a) / 1e3, "pid": pid, "tid": "device",
+                    "args": {"id": i, "request": r}}
+                   for a, b, n, i, r in self.device_intervals()]
+        events += [{"name": n, "ph": "C", "ts": t / 1e3, "pid": pid,
+                    "args": {n: v}}
+                   for th in self._each() for t, n, v in th.samples]
+        return {"traceEvents": events, "displayTimeUnit": "ns"}
+
+    def flush(self) -> None:
+        """Write the Chrome trace to `file`, where one is given."""
+        if self.file:
+            with open(self.file, "w") as f:
+                json.dump(self.chrome_trace(), f, default=str)
+
+
 _TRACERS = {
     "pad-push-timings": PadPushTimings,
     "queue-levels": QueueLevels,
@@ -347,6 +683,7 @@ _TRACERS = {
     "chrome-tracer": ChromeTracer,
     "fmt-tracer": FmtTracer,
     "torch-profiler": TorchProfilerTracer,
+    "program-spans": ProgramSpans,
 }
 
 

@@ -22,6 +22,7 @@ from gstpu.parallel import chains as jchains
 from gstpu_torch.core.audio import AudioInfo
 from gstpu_torch.core.buffer import Buffer
 from gstpu_torch.parallel import chains
+from gstpu_torch.utils import tracing
 
 B = 4
 INTENSITY, FEEDBACK = 0.4, 0.3
@@ -131,19 +132,37 @@ def test_stream_primed_in_gstpu_steps_on_in_the_port(both_chains, inputs,
 
 
 def test_step_marks_each_stage_in_order(both_chains, inputs):
-    """The measurement hook: one mark per stage, in STAGES order, and
-    the limiter's loop counted."""
-    from gstpu_torch.ops.loudnorm_dev import LIMITER_LOOP
+    """The step's spans on the program's tracer: `chain.step` holding
+    one `chain.<stage>` span a stage, in STAGES order, each a device
+    span; the limiter's waits inside `chain.limiter`, and its loop
+    counted."""
     _, (prime, step, init, _, _) = both_chains
     x0, xs = inputs
     st, _ = prime(init(1, device="cpu"), torch.from_numpy(x0[:1]),
                   INTENSITY, FEEDBACK)
-    seen = []
-    before = LIMITER_LOOP.iterations
-    step(st, torch.from_numpy(xs[0][:1]), INTENSITY, FEEDBACK,
-         mark=seen.append)
-    assert tuple(seen) == chains.STAGES
-    assert LIMITER_LOOP.iterations > before
+    spans = tracing.ProgramSpans(device=True)
+    spans.install()
+    spans.keep(True)
+    try:
+        step(st, torch.from_numpy(xs[0][:1]), INTENSITY, FEEDBACK)
+    finally:
+        spans.uninstall()
+    kept = spans.intervals()
+    by_id = {i: (name, parent) for _, _, name, i, parent, _, _ in kept}
+    (root,) = [i for i, (name, _) in by_id.items() if name == "chain.step"]
+    stages = sorted((a, name) for a, _, name, _, parent, _, _ in kept
+                    if parent == root)
+    assert tuple(n for _, n in stages) == tuple(
+        f"chain.{k}" for k in chains.STAGES)
+    assert tuple(n for _, _, n, _, _ in spans.device_intervals()) == \
+        tuple(f"chain.{k}" for k in chains.STAGES)
+    waits = [parent for _, _, name, _, parent, _, _ in kept
+             if name == "limiter.wait"]
+    assert waits and all(by_id[p][0] == "chain.limiter" for p in waits)
+    iterations = spans.snapshot()["counters"]["limiter.iterations"]
+    assert iterations > 0 and len(waits) == iterations + 1
+    # one request, the step's number, on every span of the step
+    assert len({r for *_, r, _ in kept}) == 1
 
 
 def test_chain_state_numpy_round_trip(both_chains):

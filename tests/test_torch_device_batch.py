@@ -27,6 +27,7 @@ from gstpu_torch.ops.lut import identity_lut
 from gstpu_torch.runtime.device_batch import (AuxView, DeviceContext,
                                               DeviceRow, restore_context,
                                               snapshot_context)
+from gstpu_torch.utils import tracing
 
 RATE = 48_000
 BLOCK = 4_800            # flattened samples per batch row
@@ -461,6 +462,49 @@ def test_video_chain_single_context_fused():
     # the banks are the caller's: batching never wrote into them
     np.testing.assert_array_equal(banks[0].numpy(),
                                   frames[:, 0].reshape(N, -1))
+
+
+@pytest.mark.parametrize("rows", ["tensor", "bank"])
+def test_stacked_bytes_count_copies_not_banks(rows):
+    """Two pipelines in one context: a fire stacks tensor rows, and the
+    program's counters say how many rows and bytes it copied (frames x
+    frame bytes); rows 0..B-1 of one bank go in whole, and nothing is
+    counted."""
+    W, H, N, F = 32, 16, 2, 3
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (N, F, H, W, 4), dtype=np.uint8)
+    launch = (f'appsrc name=src caps="video/x-raw, format=RGBA, '
+              f'width={W}, height={H}, framerate=30/1" ! '
+              f'hsvfilter hue_shift=33 context=vs ! '
+              f'colorlut name=cl context=vs ! appsink name=sink')
+    banks = [torch.from_numpy(frames[:, f].reshape(N, -1).copy())
+             for f in range(F)]
+
+    def row(f, s):
+        if rows == "bank":
+            return DeviceRow(banks[f], s)
+        return torch.from_numpy(frames[s, f].copy())
+
+    def set_lut(p):
+        p.get_by_name("cl").set_lut(identity_lut(size=5))
+
+    spans = tracing.ProgramSpans()
+    spans.install()
+    DeviceContext.release("vs")
+    try:
+        out = _video_run(gstpu_torch, launch, frames, set_lut, rows=row)
+    finally:
+        spans.uninstall()
+        DeviceContext.release("vs")
+    assert [len(o) for o in out] == [F] * N
+    s = spans.snapshot()
+    copied = rows == "tensor"
+    assert s["counters"].get("context.stacked_rows", 0) == \
+        (N * F if copied else 0)
+    assert s["counters"].get("context.stacked_bytes", 0) == \
+        (N * F * H * W * 4 if copied else 0)
+    assert s["calls"]["context.fire"] == F
+    assert s["calls"]["context.submit"] == N * F
 
 
 def _echo_context(name, n):
