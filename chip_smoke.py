@@ -29,7 +29,16 @@ of every kernel library in DIR and needs no card.)
    one (a gradient plus low-frequency noise, like graded footage),
    beside its plain version, the bytes bound and, for the LUT,
    torch.nn.functional.grid_sample as a yardstick;
-6. runs the audio flagship chain `rsaudioecho ! audioloudnorm !
+6. holds the measurement's K-weighting kernel (kernels/kweight.cu,
+   loudnorm_dev.kweight) against its plain form on the card, torch.equal
+   on both stages' states and the energies: seeded inputs with non-zero
+   states at 1, 3, 96 and 768 lanes of 1 and 2 channels, one frame and
+   30 (a priming fire's meter), 3 frames of subnormal-heavy input, and
+   the prime's 30 calls on frames sliced from 3 s at 768 lanes, each
+   form carrying its own states; times it at 96 and 768 lanes (median of
+   30 launches, CUDA events, L2 flushed) beside its bound, its f64
+   operations at the unfused rate and the plain form's time; then runs
+   the audio flagship chain `rsaudioecho ! audioloudnorm !
    ebur128level` (make_audiofx_exact_chain) at full width on the card:
    96 streams of 192 kHz F64 stereo, a 0.25 s echo, primed with 3 s,
    then 6 settling and 20 timed 100 ms steps over a 12-frame input
@@ -41,9 +50,10 @@ of every kernel library in DIR and needs no card.)
    the card against the same 2 on the CPU (samples within 1e-12,
    identical decisions, over 10 steps; one stream's spikes drive the
    limiter out of its rest state), and an `audiotestsrc ! rsaudioecho !
-   appsink` pipeline on the card against the CPU bit for bit; and times each
-   main-path jit kernel (echo, block biquad, limiter) alone beside its
-   bytes bound;
+   appsink` pipeline on the card against the CPU bit for bit; checks
+   that the measurement took the kernel (31 launches in the prime, 2 a
+   step); and times each main-path function (echo, the K-weighting
+   kernel, limiter) alone beside its bytes bound;
 7. runs the element form through DeviceContext: (a) 96 parse_launch
    pipelines of `appsrc ! rsaudioecho ! audioloudnorm ! ebur128level !
    appsink` sharing one context (depth 2), fed DeviceRow rows of phase
@@ -377,6 +387,10 @@ AUDIO_CHECK_STEPS = 3
 AUDIO_LIMITER_STEPS = 10     # the card-vs-CPU check, limiter stream
 AUDIO_PROFILED = 3           # element form: rounds under the profiler
 AUDIO_EOS_STEPS = 4          # element form: the EOS pair's full frames
+# the K-weighting kernel's check (phase 6): its lanes, and the lanes it
+# is timed at (phase 6's and the benchmark cell's)
+KWEIGHT_LANES = (1, 3, 96, 768)
+KWEIGHT_TIMED_LANES = (96, 768)
 # the f64 rate outside the tensor cores (NVIDIA's H100 SXM data sheet);
 # the device denoisers' products and sums run there
 F64_OPS_PER_S = 34e12
@@ -851,14 +865,15 @@ def audio_bounds(B: int, C: int) -> dict:
     at B streams, each input read once and each output written once,
     over the card's memory rate (ms). echo_block: the block in and out,
     the delayed samples read and the new ones written (the frame is
-    shorter than the delay); make_block_biquad: one channel-frame in
-    and out per call (4 calls a step); _limiter_frame with the gain
-    machine: the |x| window it scans, the enveloped head and the
-    clipped output written, and the 4096-block gating history read."""
+    shorter than the delay); kweight: the frame read, the two stages'
+    states read and written and a frame's energies written (2 calls a
+    step); _limiter_frame with the gain machine: the |x| window it
+    scans, the enveloped head and the clipped output written, and the
+    4096-block gating history read."""
     from gstpu_torch.ops.loudnorm_dev import ABSW, FRAME
     n = FRAME * C
     by = {"echo_block": 4 * B * n * 8,
-          "make_block_biquad": 2 * B * n * 8,
+          "kweight": kweight_bytes(B, C),
           "_limiter_frame": B * (ABSW * C + 2 * n + 4096) * 8}
     return {k: (v, v / HBM_BYTES_PER_S * 1e3) for k, v in by.items()}
 
@@ -943,12 +958,120 @@ def pair_inputs(x0, bank, steps: int, dev) -> list:
         n_step, 300.0 + 40 * k, dev)]) for k in range(steps)]
 
 
+def kweight_bytes(B: int, C: int) -> int:
+    """Least bytes of one kweight call on a frame: x read once, the two
+    stages' (B*C, 2) states read and written, the energies written."""
+    from gstpu_torch.ops.loudnorm_dev import FRAME
+    return 8 * (B * FRAME * C + 8 * B * C + B * C)
+
+
+def kweight_ops(B: int, C: int) -> int:
+    """f64 operations of one kweight call on a frame as kernels/kweight.cu
+    does them, each multiply and each add one: per stage and 64-block the
+    FIR's 2,016 products and sums, b0 x, the state observation and the
+    increment's two trees; the scan's nodes and folds, 8 each; the
+    squares and their trees, the frame's tree over 512; the entering
+    states folded into block 0."""
+    from gstpu_torch.ops.loudnorm_dev import FRAME, KWEIGHT_L
+    fb = FRAME // KWEIGHT_L
+    nodes = sum(fb >> j for j in range(1, fb.bit_length()))
+    folds = sum(bin(k + 1).count("1") - 1 for k in range(fb))
+    stage = fb * (2 * 2016 + 64 + 2 * 128 + 128 + 126) + 8 * (nodes + folds)
+    return B * C * (16 + 2 * stage + fb * (64 + 63) + 511)
+
+
+def kweight_phase(dev, smi, flush) -> dict:
+    """6. (first) The measurement's K-weighting kernel against its plain
+    form on the card, bit for bit, and its time."""
+    from gstpu_torch.ops import loudnorm_dev as ln
+    K = ln.KWEIGHT_KERNEL
+    K.load()
+    log(f"[kweight] {K.library_path.name}, nvcc {K.build_seconds}")
+    for line in K.compiler_output.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"    {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def inputs(B, C, nsub, scale=0.3):
+        x = torch.randn(B, nsub * ln.FRAME * C, generator=gen, **f64)
+        z1, z2 = (torch.randn(B * C, 2, generator=gen, **f64)
+                  for _ in range(2))
+        return x * scale, z1 * (scale / 3), z2 * (scale / 3)
+
+    launches0 = K.launches
+    checks = []
+
+    def check(what, zk, zp, x, C):
+        """The kernel from states zk, the plain form from zp, on x."""
+        got = ln.kweight(*zk, x, C)
+        want = ln.kweight_plain(*zp, x, C)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        checks.append({"case": what, "equal": ok})
+        if not ok:
+            raise AssertionError(f"kweight differs from its plain form: "
+                                 f"{what}")
+        return got[:2], want[:2]
+
+    for nsub in (1, 30):
+        for B in KWEIGHT_LANES if nsub == 1 else KWEIGHT_LANES[:3]:
+            for C in (1, 2):
+                x, *z = inputs(B, C, nsub)
+                check(f"B={B} C={C} frames={nsub}", z, z, x, C)
+    for C in (1, 2):
+        x, *z = inputs(96, C, 3, scale=3e-308)
+        check(f"B=96 C={C} frames=3, subnormal", z, z, x, C)
+    # the prime's 30 calls on frames sliced from its 3 s, each form
+    # carrying its own states
+    B, C = KWEIGHT_LANES[-1], 2
+    x, *z = inputs(B, C, 30)
+    zk = zp = z
+    for k in range(30):
+        zk, zp = check(f"prime call {k + 1} of 30, B={B} C={C}", zk, zp,
+                       x[:, k * ln.FRAME * C:(k + 1) * ln.FRAME * C], C)
+    torch.cuda.synchronize()
+    launches = K.launches - launches0
+    log(f"[kweight] {len(checks)} cases, torch.equal in every one (z1, "
+        f"z2, e); {launches} launches")
+
+    rows = []
+    for B in KWEIGHT_TIMED_LANES:
+        C = 2
+        x, z1, z2 = inputs(B, C, 1)
+        ops, n_bytes = kweight_ops(B, C), kweight_bytes(B, C)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F64_OPS_PER_S * 1e3
+        n0 = K.launches
+        ms = time_ms(lambda: ln.kweight(z1, z2, x, C), flush)
+        n_timed = K.launches - n0
+        row = {"name": "kweight_energies", "lanes": B, "channels": C,
+               "ms": ms,
+               "plain_ms": time_ms(lambda: ln.kweight_plain(z1, z2, x, C),
+                                   flush),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+               "unfused_bound_ms": ops / (F64_OPS_PER_S / 2) * 1e3,
+               "bytes": n_bytes, "ops": ops,
+               "gops_per_s": ops / ms / 1e6,
+               "launches_timed": n_timed, "library_ms": None}
+        rows.append(row)
+        log(f"[kweight] B={B} C={C}, one frame: {ms:.4f} ms (median of "
+            f"{N_TIMED}, L2 flushed; {n_timed} launches), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {ops} f64 "
+            f"operations at 34 TFLOP/s; bytes {bytes_ms:.4f} ms), "
+            f"{row['unfused_bound_ms']:.4f} ms at the unfused rate, "
+            f"{row['gops_per_s']:.0f} Gop/s; plain {row['plain_ms']:.3f} "
+            f"ms  [{smi}]")
+    return {"checks": checks, "launches": launches, "times": rows,
+            "registers": [line.strip() for line in
+                          K.compiler_output.splitlines()
+                          if "registers" in line]}
+
+
 def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     """6. The audio flagship chain at full width, its checks and its
     per-stage and per-kernel times."""
     from gstpu_torch.ops import loudnorm_dev as ln
-    from gstpu_torch.ops.biquad import (biquad_coeffs_shelving,
-                                        make_block_biquad)
     from gstpu_torch.ops.echo import echo_block
     from gstpu_torch.parallel.chains import (STAGES,
                                              make_audiofx_exact_chain)
@@ -957,10 +1080,12 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     prime, step, init, n_prime, n_step = make_audiofx_exact_chain(
         channels=C, echo_delay=AUDIO_DELAY, max_delay=AUDIO_DELAY)
 
+    kweight0 = ln.KWEIGHT_KERNEL.launches
     t0 = time.perf_counter()
     state, out = prime(init(B, device=dev), x0, *args)
     torch.cuda.synchronize()
     prime_s = time.perf_counter() - t0
+    kweight_prime = ln.KWEIGHT_KERNEL.launches - kweight0
     lane0 = [out[0].clone()]
     for k in range(AUDIO_SETTLE):
         state, out, meters = step(state, bank[k % AUDIO_BANK], *args)
@@ -968,12 +1093,19 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
             lane0.append(out[0].clone())
     torch.cuda.synchronize()
 
+    kweight0 = ln.KWEIGHT_KERNEL.launches
     t0 = time.perf_counter()
     for i in range(AUDIO_TIMED):
         state, out, meters = step(state, bank[i % AUDIO_BANK], *args)
     enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    kweight_step = (ln.KWEIGHT_KERNEL.launches - kweight0) / AUDIO_TIMED
+    log(f"[audio] the K-weighting kernel: {kweight_prime} launches in the "
+        f"prime, {kweight_step} a step")
+    if kweight_prime != 31 or kweight_step != 2:
+        raise AssertionError("the measurement did not take the kernel: "
+                             "31 launches a prime and 2 a step expected")
     rt = B * AUDIO_TIMED * 0.1 / wall
     shortterm = meters["shortterm"]
     if out.shape != (B, n_step) or not bool(torch.isfinite(out).all()) \
@@ -1101,17 +1233,13 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     bounds = audio_bounds(B, C)
     y = bank[0]
     tail = state["tail"]
-    xt = y.reshape(B, -1, C).permute(0, 2, 1).reshape(B * C, -1) \
-        .contiguous()
-    biquad = make_block_biquad(*biquad_coeffs_shelving(ln.RATE), L=64)
-    z = state["ln"]["z_in1"]
     lst = state["ln"]
     jit_kernels = {
         "echo_block": (lambda: echo_block(tail, y, *args,
                                           delay=AUDIO_DELAY), 1,
                        "gstpu/ops/echo.py:34"),
-        "make_block_biquad": (lambda: biquad(xt, z), 4,
-                              "gstpu/ops/biquad.py:188"),
+        "kweight": (lambda: ln.kweight(lst["z_in1"], lst["z_in2"], y, C),
+                    2, "gstpu/ops/biquad.py:188"),
         "_limiter_frame": (lambda: ln._limiter_frame(
             ln.LoudnormParams(channels=C), lst["lim"], lst["gr0"],
             lst["gr1"], lst["lstate"], lst["env_cnt"], lst["sus"],
@@ -1135,6 +1263,8 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
             "stage_ms": stage_ms, "stage_host_ms": stage_host_ms,
             "limiter_iterations_per_step": loops,
             "limiter_wait_ms_per_step": wait_ms, "profile": profile,
+            "kweight_launches_prime": kweight_prime,
+            "kweight_launches_per_step": kweight_step,
             "shortterm_mean_lufs": st_mean,
             "lane0_b1_vs_b96_max_abs_diff": lane_diff,
             "card_vs_cpu_max_abs_diff": cpu_diff,
@@ -2988,7 +3118,7 @@ def mesh_phase(gstpu_torch, dev, smi, tmp: Path) -> dict:
                                      "differs from the uninterrupted run")
         # the bytes of the step's main-path functions (audio_bounds)
         step_bytes = sum(
-            v * (4 if k == "make_block_biquad" else 1) for k, (v, _) in
+            v * (2 if k == "kweight" else 1) for k, (v, _) in
             audio_bounds(AUDIO_STREAMS, AUDIO_CHANNELS).items())
         res["exact_chain_resume"] = {
             "streams": AUDIO_STREAMS, "checkpoint_bytes": ck.stat().st_size,
@@ -7700,10 +7830,12 @@ def main() -> int:
             f"{row['library_ms']} ms  [{smi}]")
         rows.append(row)
 
-    # 6. the audio flagship chain
+    # 6. the audio flagship chain, after its K-weighting kernel alone
     t6 = time.monotonic()
+    kweight = kweight_phase(dev, smi, flush)
     x0, audio_bank = audio_banks(dev)
     audio = audio_phase(gstpu_torch, dev, smi, x0, audio_bank)
+    audio["kweight"] = kweight
 
     # 7. the element form through DeviceContext: the audio chain as 96
     # parse_launch pipelines, the 4K chain batched through both kernels

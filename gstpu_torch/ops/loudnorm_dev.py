@@ -23,8 +23,10 @@ What differs from the JAX module, and why:
   samples agree with gstpu to an ulp, not bitwise. No sum has a
   batch-dependent order (fixed-order loops and `_tree_sum_last`), so
   batch lanes are bitwise independent;
-* the measurement biquads use the shifted-add FIR on every device
-  (see make_block_biquad).
+* the measurement's K-weighting (`kweight`) takes the plain form on the
+  CPU, make_block_biquad's shifted-add FIR with the squares and
+  `_tree_sum_last`, and the hand-written kernel kernels/kweight.cu on
+  the card, which returns the same bits in one launch.
 
 prev_smp note: the reference tracks prev_smp across detect_peak
 calls, but its only read feeds the candidate at scan position 0,
@@ -34,6 +36,7 @@ imp.rs:1441-1470); it is dead for detection and not carried here.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 from functools import lru_cache
@@ -41,9 +44,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from gstpu_torch.kernels import CudaKernel, stream_handle
 from gstpu_torch.ops.biquad import (_tree_sum_last, biquad_coeffs_highpass,
                                     biquad_coeffs_shelving,
-                                    make_block_biquad)
+                                    block_biquad_tables, make_block_biquad)
 from gstpu_torch.utils.tracing import count, span
 
 F64 = torch.float64
@@ -169,26 +173,115 @@ def state_to_numpy(st: dict) -> dict:
 # measurement core
 # ---------------------------------------------------------------------------
 
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+KWEIGHT_KERNEL = CudaKernel("kweight_energies", "kweight.cu", {
+    "kweight_energies": [_P, _LL, _I, _I, _LL, _P, _P, _P, _P, _P, _P,
+                         _P]})
+KWEIGHT_L = 64                 # the block biquads' block length
+KWEIGHT_LEVELS = 32            # scan node levels in the kernel's table
+
+
+@lru_cache(maxsize=None)
+def _kweight_biquads() -> tuple:
+    return tuple(make_block_biquad(*coeffs(RATE), L=KWEIGHT_L)
+                 for coeffs in (biquad_coeffs_shelving,
+                                biquad_coeffs_highpass))
+
+
+def _scan_node_matrices(M: np.ndarray) -> list:
+    """The matrix of a node of each level of associative_scan's odd/even
+    recursion over maps that all carry M: level 0 is M, level j the
+    composition of two level j-1 nodes, rounded as _affine_combine
+    rounds it."""
+    out = [tuple(float(v) for v in M.reshape(4))]
+    for _ in range(1, KWEIGHT_LEVELS):
+        m00, m01, m10, m11 = out[-1]
+        out.append((m00 * m00 + m01 * m10, m00 * m01 + m01 * m11,
+                    m10 * m00 + m11 * m10, m10 * m01 + m11 * m11))
+    return out
+
+
+@lru_cache(maxsize=None)
+def _kweight_table(device: torch.device) -> torch.Tensor:
+    """kweight.cu's coefficient table on `device`: per stage b0, h, O's
+    columns, W's columns, M and the scan node matrices (452 f64)."""
+    parts = []
+    for coeffs in (biquad_coeffs_shelving, biquad_coeffs_highpass):
+        b0, h, O, W, M = block_biquad_tables(*coeffs(RATE), KWEIGHT_L)
+        parts += [[b0], h, O[:, 0], O[:, 1], W[:, 0], W[:, 1],
+                  M.reshape(4), np.ravel(_scan_node_matrices(M))]
+    return torch.as_tensor(np.concatenate(parts), dtype=F64, device=device)
+
+
+def kweight_plain(z1, z2, x_flat, C: int):
+    """The measurement's K-weighting as torch ops: both block biquads,
+    the squares and a `_tree_sum_last` over each FRAME."""
+    bq1, bq2 = _kweight_biquads()
+    B = x_flat.shape[0]
+    n = x_flat.shape[1] // C
+    xc = x_flat.reshape(B, n, C)
+    xt = xc.permute(0, 2, 1).reshape(B * C, n)
+    y, z1 = bq1(xt, z1)
+    y, z2 = bq2(y, z2)
+    sq = (y * y).reshape(B, C, n // FRAME, FRAME)
+    e = _tree_sum_last(sq)                          # (B, C, nsub)
+    return z1, z2, e.permute(0, 2, 1)               # (B, nsub, C)
+
+
+def kweight_kernel(z1, z2, x_flat, C: int):
+    """kweight_plain's result from one launch of kernels/kweight.cu, on
+    CUDA tensors that `kweight` has checked."""
+    B, N = x_flat.shape
+    nsub = N // (FRAME * C)
+    dev = x_flat.device
+    z1o, z2o = torch.empty_like(z1), torch.empty_like(z2)
+    e = torch.empty((B, nsub, C), dtype=F64, device=dev)
+    KWEIGHT_KERNEL.launch(
+        "kweight_energies", x_flat.data_ptr(), x_flat.stride(0), B, C,
+        nsub, z1.data_ptr(), z2.data_ptr(), _kweight_table(dev).data_ptr(),
+        z1o.data_ptr(), z2o.data_ptr(), e.data_ptr(), stream_handle(dev))
+    return z1o, z2o, e
+
+
+def kweight(z1, z2, x_flat, C: int):
+    """The K-weighted energy of every FRAME of every channel.
+
+    x_flat: (B, n*C) interleaved f64, n a multiple of FRAME, each row's
+    samples contiguous (rows may be strided); z1, z2: (B*C, 2)
+    contiguous f64 DF2T states of the shelving and the high-pass stage.
+    -> (z1, z2, energies (B, n//FRAME, C)). The plain form for a CPU
+    tensor, the kernel for a CUDA one: the same bits."""
+    dev = x_flat.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"kweight: no route for {dev}")
+    if x_flat.dtype != F64 or x_flat.dim() != 2 \
+            or x_flat.stride(-1) != 1:
+        raise ValueError("kweight: x must be (B, n*C) f64 with each row's "
+                         f"samples contiguous, got {x_flat.dtype} "
+                         f"{tuple(x_flat.shape)} strides {x_flat.stride()}")
+    B, N = x_flat.shape
+    if B < 1 or N < 1 or N % (FRAME * C):
+        raise ValueError(f"kweight: {N} samples a row is not a whole "
+                         f"number of {C}-channel frames of {FRAME}")
+    for name, z in (("z1", z1), ("z2", z2)):
+        if z.dtype != F64 or z.shape != (B * C, 2) \
+                or not z.is_contiguous() or z.device != dev:
+            raise ValueError(f"kweight: {name} must be a contiguous "
+                             f"({B * C}, 2) f64 tensor on {dev}, got "
+                             f"{z.dtype} {tuple(z.shape)} on {z.device}")
+    if dev.type == "cpu":
+        return kweight_plain(z1, z2, x_flat, C)
+    return kweight_kernel(z1, z2, x_flat, C)
+
+
 def _make_measure(params: LoudnormParams):
-    b1, a1 = biquad_coeffs_shelving(RATE)
-    b2, a2 = biquad_coeffs_highpass(RATE)
-    bq1 = make_block_biquad(b1, a1, L=64)
-    bq2 = make_block_biquad(b2, a2, L=64)
     C = params.channels
     wts = [float(w) for w in _channel_weights(C)]
 
     def measure(z1, z2, x_flat):
         """x_flat: (B, n*C) interleaved f64, n a multiple of FRAME.
         -> (z1, z2, subblock energies (B, n//FRAME, C))."""
-        B = x_flat.shape[0]
-        n = x_flat.shape[1] // C
-        xc = x_flat.reshape(B, n, C)
-        xt = xc.permute(0, 2, 1).reshape(B * C, n)
-        y, z1 = bq1(xt, z1)
-        y, z2 = bq2(y, z2)
-        sq = (y * y).reshape(B, C, n // FRAME, FRAME)
-        e = _tree_sum_last(sq)                      # (B, C, nsub)
-        return z1, z2, e.permute(0, 2, 1)           # (B, nsub, C)
+        return kweight(z1, z2, x_flat, C)
 
     def window_energy(ring, n_sub: int):
         """Last n_sub subblocks of the 30-ring (oldest-first), per

@@ -311,3 +311,179 @@ def test_state_round_trips_through_numpy():
         else:
             assert from_jax[k].dtype == v.dtype and torch.equal(
                 from_jax[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# the measurement's K-weighting (tln.kweight): the plain form on the CPU,
+# and the order of operations of the card's kernel (kernels/kweight.cu)
+# ---------------------------------------------------------------------------
+
+def _kweight_inputs(B, C, nsub, seed, scale=0.3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, nsub * FRAME * C)) * scale
+    z1 = rng.standard_normal((B * C, 2)) * scale / 3
+    z2 = rng.standard_normal((B * C, 2)) * scale / 3
+    return torch.from_numpy(x), torch.from_numpy(z1), torch.from_numpy(z2)
+
+
+def _composition(z1, z2, x, C):
+    """The measurement as `_make_measure` composed it before the kernel:
+    both block biquads, the squares, a tree sum over each FRAME."""
+    from gstpu_torch.ops import biquad as tbq
+    bq1 = tbq.make_block_biquad(*tbq.biquad_coeffs_shelving(RATE), L=64)
+    bq2 = tbq.make_block_biquad(*tbq.biquad_coeffs_highpass(RATE), L=64)
+    B, n = x.shape[0], x.shape[1] // C
+    xt = x.reshape(B, n, C).permute(0, 2, 1).reshape(B * C, n)
+    y, z1 = bq1(xt, z1)
+    y, z2 = bq2(y, z2)
+    e = tbq._tree_sum_last((y * y).reshape(B, C, n // FRAME, FRAME))
+    return z1, z2, e.permute(0, 2, 1)
+
+
+@pytest.mark.parametrize("B,C,nsub,strided", [
+    (1, 1, 1, False), (3, 2, 1, False), (2, 1, 3, False), (1, 6, 1, False),
+    (2, 2, 2, False), (2, 2, 1, True)])
+def test_measure_cpu_route_is_the_composition(B, C, nsub, strided):
+    """`measure` on CPU tensors returns the composition's bits; a row-
+    strided x is a frame sliced out of a wider block, as the prime
+    slices its 3 s."""
+    measure, _ = tln._make_measure(tln.LoudnormParams(channels=C))
+    x, z1, z2 = _kweight_inputs(B, C, nsub, 40 + 7 * B + C + nsub)
+    if strided:
+        wide = torch.cat([torch.zeros_like(x), x, torch.ones_like(x)], 1)
+        x = wide[:, x.shape[1]:2 * x.shape[1]]
+        assert not x.is_contiguous()
+    got = measure(z1, z2, x)
+    want = _composition(z1, z2, x, C)
+    assert got[2].shape == (B, nsub, C)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fault", [
+    "x_f32", "x_columns", "x_one_dim", "partial_frame", "z_f32", "z_shape",
+    "z_strided", "meta_device"])
+def test_kweight_checks_raise(fault):
+    """The wrapper refuses what neither route takes, before it routes."""
+    C = 2
+    x, z1, z2 = _kweight_inputs(2, C, 1, 3)
+    if fault == "x_f32":
+        x = x.float()
+    elif fault == "x_columns":
+        x = torch.cat([x, x], 1)[:, ::2]
+    elif fault == "x_one_dim":
+        x = x.reshape(-1)
+    elif fault == "partial_frame":
+        x = x[:, :-C]
+    elif fault == "z_f32":
+        z1 = z1.float()
+    elif fault == "z_shape":
+        z2 = z2.reshape(2, C, 2)
+    elif fault == "z_strided":
+        z1 = torch.cat([z1, z1], 1)[:, ::2]
+    elif fault == "meta_device":
+        x, z1, z2 = (t.to("meta") for t in (x, z1, z2))
+    with pytest.raises(ValueError, match="kweight"):
+        tln.kweight(z1, z2, x, C)
+
+
+def _kernel_order(table, z1, z2, x, C):
+    """kernels/kweight.cu's order of operations in numpy, from the
+    kernel's own table: each block's increment a halving tree; the block
+    states by streaming each frame's 300 blocks through the scan's nodes
+    (a node of level j, ending at e, built from its halves; block k the
+    left fold, largest first, of the nodes making up [0, k + 1)), the
+    nodes before the frame carried one a level; the FIR over ascending
+    m, then s0 O0, then s1 O1; a frame's energy the tree over its 300
+    block sums padded to 512."""
+    FB, L, LV = FRAME // 64, 64, tln.KWEIGHT_LEVELS
+    stages = []
+    for s in range(2):
+        u = table[452 * s:452 * (s + 1)]
+        stages.append(dict(b0=u[0], h=u[1:64], O=u[64:192].reshape(2, L),
+                           W=u[192:320].reshape(2, L), M=u[320:324],
+                           node=u[324:452].reshape(LV, 4)))
+
+    def tree(p):
+        while p.shape[-1] > 1:
+            p = p[..., 0::2] + p[..., 1::2]
+        return p[..., 0]
+
+    def fold(m, acc, v):
+        return ((m[0] * acc[0] + m[1] * acc[1]) + v[0],
+                (m[2] * acc[0] + m[3] * acc[1]) + v[1])
+
+    B, n = x.shape[0], x.shape[1] // C
+    rows = x.reshape(B, n, C).transpose(0, 2, 1).reshape(B * C, n)
+    z = [z1.copy(), z2.copy()]
+    carry = [[None] * LV, [None] * LV]
+    e = np.empty((B * C, n // FRAME))
+    for f in range(n // FRAME):
+        P = f * FB
+        X = rows[:, f * FRAME:(f + 1) * FRAME].reshape(-1, FB, L)
+        for s, t in enumerate(stages):
+            u = [tree(X * t["W"][0]), tree(X * t["W"][1])]
+            if P == 0:
+                for i in range(2):
+                    u[i][:, 0] = u[i][:, 0] + (t["M"][2 * i] * z[s][:, 0]
+                                               + t["M"][2 * i + 1]
+                                               * z[s][:, 1])
+            node = [u[0].copy(), u[1].copy()]
+
+            def at(e_, j):
+                return ((node[0][:, e_ - 1 - P], node[1][:, e_ - 1 - P])
+                        if e_ > P else carry[s][j])
+
+            j = 1
+            while 1 << j <= P + FB:
+                w = 1 << j
+                for q in range(P // w + 1, (P + FB) // w + 1):
+                    e_ = q * w
+                    v = fold(t["node"][j - 1], at(e_ - w // 2, j - 1),
+                             at(e_, j - 1))
+                    node[0][:, e_ - 1 - P], node[1][:, e_ - 1 - P] = v
+                j += 1
+            S = np.empty((2, B * C, FB + 1))
+            S[:, :, 0] = z[s].T
+            for k in range(FB):
+                Q = P + k + 1
+                acc = None
+                for j in range(Q.bit_length() - 1, -1, -1):
+                    if (Q >> j) & 1:
+                        v = at(Q >> j << j, j)
+                        acc = v if acc is None else fold(t["node"][j], acc,
+                                                         v)
+                S[:, :, k + 1] = acc
+            P2 = P + FB
+            for j in range(P2.bit_length()):
+                if (P2 >> j) & 1 and P2 >> j << j > P:
+                    carry[s][j] = at(P2 >> j << j, j)
+            Y = np.empty_like(X)
+            for i in range(L):
+                y = t["b0"] * X[:, :, i]
+                for m in range(i):
+                    y = y + t["h"][m] * X[:, :, i - 1 - m]
+                y = y + S[0, :, :FB] * t["O"][0][i]
+                Y[:, :, i] = y + S[1, :, :FB] * t["O"][1][i]
+            X = Y
+            z[s] = S[:, :, FB].T.copy()
+        sums = np.zeros((B * C, 512))
+        sums[:, :FB] = tree(X * X)
+        e[:, f] = tree(sums)
+    return z[0], z[1], e.reshape(B, C, -1).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("B,C,nsub,scale", [
+    (2, 2, 1, 0.3), (1, 1, 3, 0.3), (1, 1, 30, 0.3), (1, 2, 3, 3e-308)])
+def test_kernel_order_is_the_plain_form(B, C, nsub, scale):
+    """The kernel's order of operations, emulated, gives the plain
+    form's bits: one frame, frames carried through the scan (30 is a
+    priming fire's x), and an input whose samples and products are
+    subnormal. The card holds the kernel itself to the plain form
+    (chip_smoke.py)."""
+    x, z1, z2 = _kweight_inputs(B, C, nsub, 90 + nsub, scale)
+    table = tln._kweight_table(torch.device("cpu")).numpy()
+    got = _kernel_order(table, z1.numpy(), z2.numpy(), x.numpy(), C)
+    want = tln.kweight(z1, z2, x, C)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
