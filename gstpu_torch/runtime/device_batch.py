@@ -49,6 +49,14 @@ Usage (element side): implement `device_batch_spec()` returning
        )
 and call DeviceContext.acquire(name).add_member(element) in start().
 
+Ragged members (llamatexttransform's prompts): a spec with `ragged=True`
+and `step=f(items: list) -> list` takes whole items of any size, which
+its element queues with `submit_item(element, item, pts, duration)` in
+a context of block 1. A fire takes one item from every chain, calls the
+step once on the list and hands output i, with item i's pts and
+duration, to lane i's `make_batch_buffer`; it distributes at once
+(the step returns host values). A ragged chain is one element.
+
 A uniform that is the same in every lane reaches the step as the
 Python value; one that differs as a (B, 1) f64 tensor on the batch's
 device. Host-int state entries (gstpu_torch.ops.loudnorm_dev.HOST_INTS)
@@ -330,6 +338,7 @@ class DeviceContext:
         # split back only on demand
         self._batched = None          # (chain_id_tuple, states tuple)
         self._uni_cache = None        # (values key, uniforms)
+        self._ragged = False          # members submit whole items
 
     # -- membership -----------------------------------------------------
     def add_member(self, element) -> _Member:
@@ -363,6 +372,9 @@ class DeviceContext:
         if m is not None:
             self.members.remove(m)
             self.chains = None
+            # a member and its chain point at each other: unlink them, so
+            # that what the member's spec holds (a model) goes with it
+            m.chain = m.spec = None
         if not self.members:
             DeviceContext._registry.pop(self.name, None)
 
@@ -411,6 +423,11 @@ class DeviceContext:
                 f"{sorted(set(key), key=repr)} (all chains of one context "
                 f"must run the same step sequence)")
         self.key = key[0]
+        self._ragged = bool(chains[0].stages[0].spec.get("ragged"))
+        if self._ragged and any(len(c.members) > 1 for c in chains):
+            raise ValueError(
+                f"device-context {self.name!r}: a ragged chain is one "
+                f"element")
         self.chains = chains
         self._fused = self._compose([s.spec for s in chains[0].stages])
         self._prime_n = max((s.spec.get("prime_blocks", 1)
@@ -539,20 +556,33 @@ class DeviceContext:
                 m.dtype = samples.dtype
                 m.rate = rate
                 m.pending.extend(samples.tobytes())
-            # incremental gate: a fire needs EVERY active chain ready,
-            # so only this member's own readiness can have changed here;
-            # try_fire recounts exactly whenever it scans, so the mirror
-            # can never wedge the context
-            c = m.chain
-            if (c is not None and self.chains is not None
-                    and not self._has_unfinalized and m.active):
-                now = self._avail(m) >= self._need(c)
-                if now != m.ready:
-                    m.ready = now
-                    self._n_ready += 1 if now else -1
-                if self._n_ready < self._n_active:
-                    return
-            self.try_fire()
+            self._gate(m)
+
+    def submit_item(self, element, item, pts, duration) -> None:
+        """Queue one whole item of a ragged member (its spec's `ragged`),
+        with the pts and duration its output takes."""
+        with span("context.submit", pts):
+            m = self.member_for(element)
+            m.dev_rows.append((item, pts, duration))
+            m.dev_avail += 1
+            self._gate(m)
+
+    def _gate(self, m: _Member) -> None:
+        """Fire if `m`'s submission made every active chain ready.
+        Incremental: a fire needs EVERY active chain ready, so only this
+        member's own readiness can have changed here; try_fire recounts
+        exactly whenever it scans, so the mirror can never wedge the
+        context."""
+        c = m.chain
+        if (c is not None and self.chains is not None
+                and not self._has_unfinalized and m.active):
+            now = self._avail(m) >= self._need(c)
+            if now != m.ready:
+                m.ready = now
+                self._n_ready += 1 if now else -1
+            if self._n_ready < self._n_active:
+                return
+        self.try_fire()
 
     def _avail(self, m: _Member) -> int:
         if m.dev_rows:
@@ -692,7 +722,41 @@ class DeviceContext:
             x = x.reshape((x.shape[0],) + sshape)
         return x
 
+    def _consumed(self, ready: list[_Chain]) -> None:
+        """Mark the fired chains primed and keep the incremental
+        readiness mirror exact: the fired heads just consumed a block
+        (and may have flipped primed, which changes their need)."""
+        for c in ready:
+            c.primed = True
+        for c in ready:
+            h = c.head
+            now = h.active and self._avail(h) >= self._need(c)
+            if now != h.ready:
+                h.ready = now
+                self._n_ready += 1 if now else -1
+        self.fire_count += 1
+
+    def _fire_items(self, ready: list[_Chain]) -> None:
+        """A ragged fire: one item of every ready chain through the step
+        in one call, the outputs distributed at once."""
+        with span("context.fire", self.fire_count + 1):
+            taken = []
+            for c in ready:
+                h = c.head
+                taken.append(h.dev_rows.pop(0))
+                h.dev_avail -= 1
+            outs = ready[0].stages[0].spec["step"](
+                [item for item, _, _ in taken])
+            self._consumed(ready)
+        with span("context.distribute", self.fire_count):
+            for c, (_, pts, dur), out in zip(ready, taken, outs):
+                if c.head.active:
+                    el = c.tail.element
+                    el.srcpad.push(el.make_batch_buffer(out, pts, dur))
+
     def _fire(self, ready: list[_Chain]) -> None:
+        if self._ragged:
+            return self._fire_items(ready)
         with span("context.fire", self.fire_count + 1):
             priming = not ready[0].primed
             n = self.block * (self._prime_blocks() if priming else 1)
@@ -747,18 +811,7 @@ class DeviceContext:
             states, out, aux = fn(states, x, unis)
             self._batched = (ids, states)
             aux = [AuxView(a) if isinstance(a, dict) else a for a in aux]
-            for c in ready:
-                c.primed = True
-            # keep the incremental readiness mirror exact: the fired heads
-            # just consumed a block (and may have flipped primed, which
-            # changes their need)
-            for c in ready:
-                h = c.head
-                now = h.active and self._avail(h) >= self._need(c)
-                if now != h.ready:
-                    h.ready = now
-                    self._n_ready += 1 if now else -1
-            self.fire_count += 1
+            self._consumed(ready)
             CAT.log("context %s: fired batch of %d chains x %d (%s, "
                     "total %d)", self.name, len(ready), n,
                     "prime" if priming else "step", self.fire_count)
@@ -829,6 +882,18 @@ class DeviceContext:
             return []
         self.flush_pending()
         self._writeback()
+        if self._ragged:
+            # the member's queued items alone, in order
+            step = chain.stages[0].spec["step"]
+            out_bufs = []
+            while m.dev_rows:
+                item, pts, dur = m.dev_rows.pop(0)
+                m.dev_avail -= 1
+                out_bufs.append(m.element.make_batch_buffer(
+                    step([item])[0], pts, dur))
+            m.active = False
+            self.try_fire()
+            return out_bufs
         step, prime, n_stages, _final = self._fused
         hspec = chain.stages[0].spec
         cdtype = hspec.get("compute_dtype", np.float64)

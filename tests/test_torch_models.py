@@ -273,6 +273,12 @@ CACHE_DEPARTURES = {
         "(gstpu's aliases module makes it)",
     ("burn-yoloxinference", "description"):
         "the port's subclass has a docstring; gstpu's alias has none",
+    ("llamatexttransform", "properties"):
+        "the port adds `context`: the prompts of a DeviceContext's members "
+        "run as one batched prefill and decode of the port's own "
+        "deepseek_v3 model (gstpu has no such model)",
+    ("llamacpp-texttransform", "properties"):
+        "the alias of llamatexttransform, with its `context`",
     ("demucs", "pad_templates"):
         "the port's pads take channels as the range [1,2] (gstpu's plain "
         "tuple (1, 2) intersects with no other caps; "

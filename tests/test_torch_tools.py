@@ -33,7 +33,8 @@ from test_torch_captions import Pkg, _both
 
 ROOT = Path(__file__).resolve().parents[1]
 REWRITTEN = {"audiornnoise", "burn-yoloxinference", "colorlut", "demucs",
-             "ffv1enc", "hsvfilter", "rav1enc", "rsaudioecho",
+             "ffv1enc", "hsvfilter", "llamacpp-texttransform",
+             "llamatexttransform", "rav1enc", "rsaudioecho",
              "yoloxinference"}
 
 
