@@ -32,6 +32,7 @@ from gstpu_torch.ops import av1_intra
 from gstpu_torch.ops.av1_intra import (DeviceRateControl, QstepRateControl,
                                        make_intra_analyzer,
                                        make_intra_transform)
+from torch_session import torch_test_limit  # noqa: F401
 
 # Measured on these tests' planes (seeded): each step of the analyzer's
 # curve within 5.6e-4 of the curve's finest step (a level that rounds the

@@ -18,6 +18,7 @@ import torch
 
 from gstpu.ops import biquad as jbq
 from gstpu_torch.ops import biquad as tbq
+from torch_session import torch_test_limit  # noqa: F401
 
 RATE = 192_000
 STAGES = {"shelving": tbq.biquad_coeffs_shelving,

@@ -26,6 +26,7 @@ import torch
 import chip_smoke
 import gstpu
 import gstpu_torch
+from torch_session import torch_test_limit  # noqa: F401
 
 NAMES = ("gstpu", "gstpu_torch")
 SECOND = 10 ** 9
@@ -34,14 +35,9 @@ HSV = "hue_shift=12 saturation_mul=1.1 value_mul=0.9 value_off=0.02"
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class Pkg:

@@ -23,6 +23,7 @@ from gstpu_torch.core.audio import AudioInfo
 from gstpu_torch.core.buffer import Buffer
 from gstpu_torch.parallel import chains
 from gstpu_torch.utils import tracing
+from torch_session import torch_test_limit  # noqa: F401
 
 B = 4
 INTENSITY, FEEDBACK = 0.4, 0.3

@@ -29,6 +29,7 @@ from gstpu_torch.parallel.chains import make_audiofx_exact_chain
 from gstpu_torch.runtime.device_batch import (DeviceContext,
                                               restore_context,
                                               snapshot_context)
+from torch_session import torch_test_limit  # noqa: F401
 
 FRAME = 19_200
 GATING = 64          # small device gating history, as gstpu's test

@@ -18,6 +18,7 @@ from gstpu_torch.parallel.chains import make_audiofx_chain
 from gstpu_torch.parallel.checkpoint import checkpoint, restore
 from test_torch_streams import (WORLD_TIMEOUT_S, Gather, init_rank,
                                 spawn_world)
+from torch_session import torch_test_limit  # noqa: F401
 
 PARAMS = tuple(float(np.float32(v)) for v in (0.4, 0.3, 0.1))
 MESH_RANKS = 4
@@ -26,13 +27,8 @@ MESH_B = 8
 
 @pytest.fixture(autouse=True)
 def _port_on_cpu():
-    """The port on the CPU, in one torch thread (test_torch_streams.py
-    says why)."""
+    """The port on the CPU."""
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _blocks(n, B=4, block=2000, seed=0):

@@ -17,6 +17,7 @@ import pytest
 
 import chip_smoke
 from test_torch_webrtc import _both_on_cpu, case, twin  # noqa: F401
+from torch_session import torch_test_limit  # noqa: F401
 
 
 def _twins(*cases):

@@ -42,6 +42,7 @@ from gstpu_torch.core.registry import make
 from gstpu_torch.core.video import VideoInfo
 from gstpu_torch.elements.video import convert
 from gstpu_torch.elements.video.compositor import _blend
+from torch_session import torch_test_limit  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ from gstpu_torch.runtime.device_batch import (AuxView, DeviceContext,
                                               DeviceRow, restore_context,
                                               snapshot_context)
 from gstpu_torch.utils import tracing
+from torch_session import torch_test_limit  # noqa: F401
 
 RATE = 48_000
 BLOCK = 4_800            # flattened samples per batch row

@@ -16,6 +16,7 @@ from gstpu.ops.echo import echo_block as jax_echo_block
 from gstpu.ops.echo import echo_reference
 from gstpu.ops.echo import make_state as jax_make_state
 from gstpu_torch.ops.echo import echo_block, make_state
+from torch_session import torch_test_limit  # noqa: F401
 
 UNIFORMS = [(0.5, 0.0), (0.4, 0.6), (1.0, 1.0)]
 SHAPES = [(100, 100, 64), (50, 200, 64), (500, 500, 1000), (7, 16, 5)]

@@ -32,6 +32,7 @@ from gstpu_torch.codecs import ffv1
 from gstpu_torch.core.buffer import Buffer
 from gstpu_torch.ops import ffv1_pred
 from gstpu_torch.ops.ffv1_pred import Predictor, to_numpy
+from torch_session import torch_test_limit  # noqa: F401
 
 W, H = 89, 51          # odd sizes exercise the ceil-chroma borders
 

@@ -26,6 +26,7 @@ from gstpu.codecs import vorbis as jvorbis
 from gstpu.core.audio import AudioInfo as JAudioInfo
 from gstpu_torch.codecs import flac, ogg, vorbis
 from gstpu_torch.core.audio import AudioInfo
+from torch_session import torch_test_limit  # noqa: F401
 
 HOUSE = ("/opt/venv/lib/python3.12/site-packages/pygame/examples/"
          "data/house_lo.ogg")
@@ -38,14 +39,9 @@ PACKAGES = {"gstpu": (gstpu, JAudioInfo), "gstpu_torch": (gstpu_torch,
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run(name: str, launch: str, sink: str | None = "sink"):

@@ -24,6 +24,7 @@ from gstpu.core.harness import Harness as JHarness
 from gstpu_torch import native
 from gstpu_torch.core.audio import AudioInfo
 from gstpu_torch.core.harness import Harness
+from torch_session import torch_test_limit  # noqa: F401
 
 PACKAGES = {"gstpu": (gstpu, JAudioInfo, JHarness),
             "gstpu_torch": (gstpu_torch, AudioInfo, Harness)}
@@ -31,14 +32,9 @@ PACKAGES = {"gstpu": (gstpu, JAudioInfo, JHarness),
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run(name: str, launch: str):

@@ -27,12 +27,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import chip_smoke
 import gstpu
 import gstpu_torch
 from test_torch_captions import NAMES, Pkg, _bufs, _msgs
+from torch_session import torch_test_limit  # noqa: F401
 
 SECOND = 10 ** 9
 W, H = 64, 48
@@ -40,14 +40,9 @@ W, H = 64, 48
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _both(body):

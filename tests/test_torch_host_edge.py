@@ -16,12 +16,12 @@ an MP4 file, the same launch string in both packages.
 
 import numpy as np
 import pytest
-import torch
 
 import gstpu
 import gstpu_torch
 from gstpu_torch.codecs.flac import StreamInfo, crc8, encode_verbatim
 from gstpu_torch.mux.boxes import parse_boxes
+from torch_session import torch_test_limit  # noqa: F401
 
 CHAIN_TOL = 1e-12
 FLAGSHIP = ("rsaudioecho delay=250000000 intensity=0.4 feedback=0.3 ! "
@@ -34,14 +34,9 @@ RESAMPLER_EDGE = 35
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _crc16_table() -> list:
@@ -124,7 +119,7 @@ def _file_to_file(tmp_path, src, middle: str) -> dict:
             f"filesrc location={src} ! claxondec ! audioconvert ! {middle}"
             f" ! isomp4mux ! filesink location={dst}")
         p.set_state(pkg.State.PLAYING)
-        p.run(timeout=600)
+        p.run(timeout=120)
         p.set_state(pkg.State.NULL)
         files[pkg.__name__] = dst.read_bytes()
     return files

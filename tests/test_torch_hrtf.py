@@ -28,6 +28,7 @@ from gstpu_torch.elements.audio.hrtf import (HrirSphere, _sph_to_vec,
 from gstpu_torch.ops.fftconv import (direct_conv_reference, ir_rfft,
                                      next_pow2, ols_block, upc_block,
                                      upc_init, upc_ir_rfft)
+from torch_session import torch_test_limit  # noqa: F401
 
 RATE = 44100
 IR_LEN = 32

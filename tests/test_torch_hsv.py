@@ -31,6 +31,7 @@ from gstpu_torch.ops import fma_f32
 from gstpu_torch.ops.hsv import (HSV_KERNEL, _floor_mod, hsv_detect,
                                  hsv_detect_frame, hsv_filter_frame,
                                  hsv_filter_frame_ref)
+from torch_session import torch_test_limit  # noqa: F401
 
 PARAMS = [(12.0, 1.1, 0.0, 0.9, 0.02),
           (-47.5, 0.8, 0.05, 1.3, -0.1),

@@ -24,6 +24,7 @@ import gstpu
 import gstpu_torch
 from gstpu.codecs import cdg as jcdg
 from gstpu_torch.codecs import cdg
+from torch_session import torch_test_limit  # noqa: F401
 
 NAMES = ("gstpu", "gstpu_torch")
 HSV = "hue_shift=12 saturation_mul=1.1 value_mul=0.9 value_off=0.02"
@@ -31,14 +32,9 @@ HSV = "hue_shift=12 saturation_mul=1.1 value_mul=0.9 value_off=0.02"
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _mod(name: str, path: str):

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import gstpu_torch
+from torch_session import torch_test_limit  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gstpu_torch").rglob("*.py")) \
@@ -384,7 +385,7 @@ def test_a420_templates_match_gstpu():
             "    ('A420' in jv.ALL_VIDEO_FORMATS)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
 

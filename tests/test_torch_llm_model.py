@@ -24,6 +24,7 @@ import torch
 
 import gstpu_torch
 from gstpu_torch.models import deepseek_v3 as dv
+from torch_session import torch_test_limit  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -24,6 +24,7 @@ from gstpu.elements.audio.loudnorm import _LoudNormState
 from gstpu.ops import biquad as jbq
 from gstpu.ops import loudnorm_dev as jln
 from gstpu_torch.ops import loudnorm_dev as tln
+from torch_session import torch_test_limit  # noqa: F401
 
 RATE = 192_000
 ATOL = 1e-9

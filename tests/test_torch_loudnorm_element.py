@@ -26,6 +26,7 @@ from gstpu_torch.core.query import LatencyQuery
 from gstpu_torch.elements.audio.loudnorm import _LoudNormState
 from gstpu_torch.ops.ebur128 import EbuR128
 from gstpu_torch.runtime.device_batch import DeviceContext
+from torch_session import torch_test_limit  # noqa: F401
 
 RATE = 192_000
 NEG_INF = float("-inf")
@@ -78,7 +79,7 @@ def _run(pkg, src_desc, num_buffers, samples_per_buffer, channels,
         src.end_of_stream()
     sink = p.get_by_name("sink")
     p.set_state(pkg.State.PLAYING)
-    p.run(timeout=600)
+    p.run(timeout=60)
     bufs = sink.pull_all()
     eos = sink.is_eos
     p.set_state(pkg.State.NULL)

@@ -17,6 +17,7 @@ import torch
 
 from gstpu.ops import lut as jlut
 from gstpu_torch.ops import lut as tlut
+from torch_session import torch_test_limit  # noqa: F401
 
 CUBE_3D = """TITLE "seeded"
 # comment

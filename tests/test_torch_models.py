@@ -31,6 +31,7 @@ import gstpu
 import gstpu_torch
 from test_torch_net import _as_port
 from test_torch_webrtc import TESTS, _both_on_cpu, case, twin  # noqa: F401
+from torch_session import torch_test_limit  # noqa: F401
 
 ROOT = TESTS.parent
 NAMES = ("gstpu", "gstpu_torch")
@@ -235,7 +236,7 @@ def test_docs_cache_current(tmp_path):
     out = tmp_path / "cache.json"
     r = subprocess.run(
         [sys.executable, "-m", "gstpu_torch.tools.docs_cache", "-o",
-         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == f"wrote {out} (268 elements)"
     fresh = out.read_text()

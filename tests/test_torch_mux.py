@@ -22,6 +22,7 @@ import torch
 
 import gstpu
 import gstpu_torch
+from torch_session import torch_test_limit  # noqa: F401
 
 SECOND = 1_000_000_000
 MSECOND = 1_000_000
@@ -60,14 +61,9 @@ PKGS = {"gstpu": _package("gstpu"), "gstpu_torch": _package("gstpu_torch")}
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class MuxDriver:

@@ -23,6 +23,7 @@ from gstpu_torch.core import device as device_mod
 from gstpu_torch.ops.echo import echo_block
 from gstpu_torch.parallel import chains
 from gstpu_torch.parallel.chains import kweight_fir, make_audiofx_chain
+from torch_session import torch_test_limit  # noqa: F401
 
 OUT_TOL = 2.4e-7
 LOUD_TOL_DB = 1e-5
@@ -43,13 +44,8 @@ CASES = {
 
 @pytest.fixture(autouse=True)
 def _port_on_cpu():
-    """The port on the CPU, in one torch thread (test_torch_streams.py
-    says why)."""
+    """The port on the CPU."""
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _uniforms(u):

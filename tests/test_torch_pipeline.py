@@ -18,6 +18,7 @@ from gstpu.ops.lut import parse_cube
 from gstpu_torch.core.element import StateChangeReturn
 from gstpu_torch.core.video import VideoInfo
 from gstpu_torch.ops.lut import lut_from_numpy
+from torch_session import torch_test_limit  # noqa: F401
 
 CUBE = "LUT_3D_SIZE 3\nDOMAIN_MIN 0.05 0.0 0.0\nDOMAIN_MAX 1.0 0.95 1.0\n" \
     + "\n".join(f"{(r * 0.37 + g * 0.2) % 1:.4f} {(g * 0.61 + b * 0.1) % 1:.4f}"

@@ -26,12 +26,12 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import chip_smoke
 import gstpu
 import gstpu_torch
 from test_torch_captions import NAMES, Pkg
+from torch_session import torch_test_limit  # noqa: F401
 
 LIMIT = 60.0
 W, H = 64, 48
@@ -39,14 +39,9 @@ W, H = 64, 48
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class QPkg(Pkg):

@@ -27,6 +27,7 @@ from gstpu_torch.ops.rnnoise import (FRAME_SIZE, DenoiseState, GruModel,
                                      make_device_denoiser,
                                      make_device_gru_denoiser,
                                      state_from_numpy, state_to_numpy)
+from torch_session import torch_test_limit  # noqa: F401
 
 SCALE = 32767.0
 F64_TOL = 1e-9 * SCALE

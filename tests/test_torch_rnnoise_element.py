@@ -28,6 +28,7 @@ from gstpu_torch.ops.rnnoise import (FRAME_SIZE, make_device_denoiser,
                                      make_device_gru_denoiser)
 from gstpu_torch.runtime.device_batch import DeviceContext, DeviceRow
 from test_torch_rnnoise import gru_weights
+from torch_session import torch_test_limit  # noqa: F401
 
 RATE = 48000
 CAPS = ("audio/x-raw, format=F32LE, rate=48000, channels={ch}, "

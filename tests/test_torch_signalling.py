@@ -23,6 +23,7 @@ import pytest
 
 from test_torch_webrtc import _both_on_cpu, case, twin  # noqa: F401
 from test_torch_webrtc import TESTS
+from torch_session import torch_test_limit  # noqa: F401
 
 
 def _twins(*cases):

@@ -33,6 +33,7 @@ import torch
 
 import gstpu_torch
 from gstpu_torch.ops.echo import echo_block, make_state
+from torch_session import torch_test_limit  # noqa: F401
 
 WORLD = 8
 # gstpu's meshes (tests/test_parallel.py, tests/test_seq_sharding.py),
@@ -41,9 +42,10 @@ WORLD = 8
 MESHES = [(4, 2), (2, 4), (8, 1)]
 FIR_MESHES = [(2, 4), (8, 1)]
 # the gloo collectives' timeout, and the whole world's (a world takes
-# ~15 s alone; the margins are for a machine the test workers share)
-GLOO_TIMEOUT_S = 300
-WORLD_TIMEOUT_S = 480
+# ~22 s inside the suite, ~80 s when two suites share the cores), which
+# ends inside a test's limit (torch_session.TEST_LIMIT_S)
+GLOO_TIMEOUT_S = 180
+WORLD_TIMEOUT_S = 240
 # the port's seq-sharded K-weighting against gstpu's on the same inputs,
 # Queue C's bound for the block form (its high-pass stage amplifies
 # rounding differences): measured at most 2.49e-12 on outputs of peak
@@ -157,7 +159,6 @@ def init_rank(rank: int, n: int, store_path: str) -> None:
     """Join the gloo world as `rank` on the port's CPU device."""
     import torch.distributed as dist
     assert "jax" not in sys.modules
-    torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(store_path, n), rank=rank,
         world_size=n, timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
@@ -338,15 +339,8 @@ def world(tmp_path_factory):
 
 @pytest.fixture(autouse=True)
 def _port_on_cpu():
-    """The port on the CPU, in one torch thread: these tensors are small,
-    and a pool of threads stalls for long when the test workers share
-    the cores (a flagship block took 50x longer with 8 threads than with
-    1 beside a busy CPU)."""
+    """The port on the CPU."""
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _within_an_ulp(got, want, x) -> bool:

@@ -10,10 +10,10 @@ code in both packages, so there is no tolerance.
 import importlib
 
 import pytest
-import torch
 
 import gstpu
 import gstpu_torch
+from torch_session import torch_test_limit  # noqa: F401
 
 NAMES = ("gstpu", "gstpu_torch")
 
@@ -22,10 +22,6 @@ NAMES = ("gstpu", "gstpu_torch")
 def _both_on_cpu():
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _mod(name: str, path: str):

@@ -24,12 +24,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import chip_smoke
 import gstpu
 import gstpu_torch
 from test_torch_captions import Pkg, _both
+from torch_session import torch_test_limit  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 REWRITTEN = {"audiornnoise", "burn-yoloxinference", "colorlut", "demucs",
@@ -40,14 +40,9 @@ REWRITTEN = {"audiornnoise", "burn-yoloxinference", "colorlut", "demucs",
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _neutral(P, text):
@@ -318,7 +313,7 @@ def test_phase16_launch_tool(tmp_path):
                                  text=True, stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE)
              for k, cmd in runs.items()}
-    res = {k: (p.communicate(timeout=300), p.returncode)
+    res = {k: (p.communicate(timeout=120), p.returncode)
            for k, p in procs.items()}
     (_, err), rc = res["cpu"]
     assert rc == 0, err

@@ -16,11 +16,11 @@ import sys
 import threading
 
 import pytest
-import torch
 
 import gstpu_torch
 from gstpu_torch import State, parse_launch
 from gstpu_torch.utils import tracing
+from torch_session import torch_test_limit  # noqa: F401
 
 LAUNCH = ("audiotestsrc num-buffers=2 ! rsaudioecho delay=1000000 ! "
           "queue ! appsink name=sink")
@@ -28,13 +28,8 @@ LAUNCH = ("audiotestsrc num-buffers=2 ! rsaudioecho delay=1000000 ! "
 
 @pytest.fixture(autouse=True)
 def _port_on_cpu():
-    """The port on the CPU, in one torch thread (test_torch_streams.py
-    says why)."""
+    """The port on the CPU."""
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run(tracer) -> None:

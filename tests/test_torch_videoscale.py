@@ -22,6 +22,7 @@ import gstpu_torch
 from gstpu.elements.video.scale import _resize as jax_resize
 from gstpu_torch.core.device import tf32_off
 from gstpu_torch.elements.video.scale import _resize, nearest_indices
+from torch_session import torch_test_limit  # noqa: F401
 
 LINEAR_SHARE = 0.02
 

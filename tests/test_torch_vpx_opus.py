@@ -13,13 +13,13 @@ cases wait for the port's webrtcsink (ROADMAP, Queue D item 6).
 
 import numpy as np
 import pytest
-import torch
 
 import gstpu
 import gstpu_torch
 from gstpu.core.harness import Harness as JHarness
 from gstpu_torch.core.buffer import BufferFlags
 from gstpu_torch.core.harness import Harness
+from torch_session import torch_test_limit  # noqa: F401
 
 SECOND = 1_000_000_000
 PACKAGES = {"gstpu": (gstpu, JHarness), "gstpu_torch": (gstpu_torch, Harness)}
@@ -27,17 +27,13 @@ PACKAGES = {"gstpu": (gstpu, JHarness), "gstpu_torch": (gstpu_torch, Harness)}
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why); skipped without the shim."""
+    """gstpu's registry and the port's, the port on the CPU; skipped
+    without the shim."""
     from gstpu_torch.native_codec import load
     if load() is None:
         pytest.skip("native codec shim unavailable")
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _key(b) -> tuple:

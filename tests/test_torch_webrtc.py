@@ -44,6 +44,7 @@ import chip_smoke
 import gstpu
 import gstpu_torch
 from test_torch_rtp import _SeededRandom
+from torch_session import torch_test_limit  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 W, H = 64, 48
@@ -63,14 +64,9 @@ REASONS = {
 
 @pytest.fixture(autouse=True)
 def _both_on_cpu():
-    """gstpu's registry and the port's, the port on the CPU in one torch
-    thread (test_torch_streams.py says why)."""
+    """gstpu's registry and the port's, the port on the CPU."""
     gstpu.init()
     gstpu_torch.init(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _PortPackage(types.ModuleType):

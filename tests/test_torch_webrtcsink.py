@@ -16,6 +16,7 @@ tests' own, loaded once for each package.
 import pytest
 
 from test_torch_webrtc import _both_on_cpu, case, twin  # noqa: F401
+from torch_session import torch_test_limit  # noqa: F401
 
 
 def _twins(*cases):

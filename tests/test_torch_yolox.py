@@ -41,6 +41,7 @@ from gstpu_torch.elements.analytics.analytics import (
     decode_palm_detections, palm_rotation_from_keypoints)
 from gstpu_torch.ops import yolox
 from gstpu_torch.ops.detection import nms, yolox_decode, yolox_grids
+from torch_session import torch_test_limit  # noqa: F401
 
 MAX_ABS_DIFF = 2e-6
 
