@@ -23,7 +23,7 @@ tokenizer files it departs from the reference's tokenizer: a prompt's
 UTF-8 bytes are its ids 0-255, and each generated id goes out as one
 printable byte (id mod 95 + 32), so a reply of n tokens reads back as n
 tokens in the next prompt's history. With `context`, every element of
-the named DeviceContext submits its prompt and one fire serves them all
+the named ItemContext submits its prompt and one fire serves them all
 in one batched prefill and decode loop; each reply keeps its input's
 pts and duration.
 """
@@ -41,7 +41,7 @@ from gstpu_torch.core.caps import Caps
 from gstpu_torch.core.element import PadDirection, PadPresence, PadTemplate
 from gstpu_torch.core.props import Mutability, Property
 from gstpu_torch.core.registry import Rank, register_element
-from gstpu_torch.runtime.device_batch import DeviceContext
+from gstpu_torch.runtime.device_batch import ItemContext
 
 TEXT_CAPS = Caps.new("text/x-raw", format="utf8")
 
@@ -199,11 +199,25 @@ class LlamaTextTransform(BaseTransform):
             try:
                 cfg = config_only(self.model_path)
                 if cfg is not None:
-                    return self._start_port(cfg)
+                    if self.temp > 0:
+                        self.post_error("llamatexttransform: the port's "
+                                        "model decodes greedily: set "
+                                        "temp=0")
+                        return False
+                    self._lm = PortLm(self.model_path, cfg, seed=self.seed,
+                                      max_tokens=self.max_tokens)
             except (OSError, ValueError, RuntimeError) as e:
                 self.post_error(f"llamatexttransform: cannot load "
                                 f"{self.model_path!r}: {e}")
                 return False
+        if self._lm is not None:
+            if self.context:
+                self._ctx = ItemContext.join(
+                    self.context, self,
+                    (id(self._lm.model), self.max_tokens), self._lm.serve)
+            else:
+                self.engine = self._lm.generate
+            return True
         if self.context:
             self.post_error("llamatexttransform: context batching needs "
                             "a config-only deepseek_v3 model-path")
@@ -225,23 +239,9 @@ class LlamaTextTransform(BaseTransform):
                 return False
         return True
 
-    def _start_port(self, cfg: dict) -> bool:
-        if self.temp > 0:
-            self.post_error("llamatexttransform: the port's model "
-                            "decodes greedily: set temp=0")
-            return False
-        self._lm = PortLm(self.model_path, cfg, seed=self.seed,
-                          max_tokens=self.max_tokens)
-        if self.context:
-            self._ctx = DeviceContext.acquire(self.context, block=1)
-            self._ctx.finalize_member(self)
-        else:
-            self.engine = self._lm.generate
-        return True
-
     def stop(self) -> bool:
         if self._ctx is not None:
-            self._ctx.remove_member(self)
+            self._ctx.leave(self)
             self._ctx = None
         if self._lm is not None:
             if self.engine == self._lm.generate:
@@ -249,14 +249,7 @@ class LlamaTextTransform(BaseTransform):
             self._lm = None
         return super().stop()
 
-    # -- DeviceContext contract (ragged: one prompt an item) ------------
-    def device_batch_spec(self) -> dict:
-        lm = self._lm
-        return dict(key=("llamatexttransform", id(lm.model),
-                         lm.max_tokens),
-                    ragged=True, step=lm.serve,
-                    init_state=lambda: (), uniforms=lambda: ())
-
+    # -- ItemContext contract: one prompt an item -----------------------
     def make_batch_buffer(self, reply: LmReply, pts, dur) -> Buffer:
         self._history.append((self._asked.popleft(), reply.text))
         if self.keep_logits:
@@ -283,7 +276,7 @@ class LlamaTextTransform(BaseTransform):
             return None
         if self._ctx is not None:
             self._asked.append(text)
-            self._ctx.submit_item(
+            self._ctx.submit(
                 self, LmRequest(self._lm.encode(self._prompt(text)),
                                 self.keep_logits), buf.pts, buf.duration)
             return []                 # replies flow from the fire

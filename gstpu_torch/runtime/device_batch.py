@@ -49,14 +49,6 @@ Usage (element side): implement `device_batch_spec()` returning
        )
 and call DeviceContext.acquire(name).add_member(element) in start().
 
-Ragged members (llamatexttransform's prompts): a spec with `ragged=True`
-and `step=f(items: list) -> list` takes whole items of any size, which
-its element queues with `submit_item(element, item, pts, duration)` in
-a context of block 1. A fire takes one item from every chain, calls the
-step once on the list and hands output i, with item i's pts and
-duration, to lane i's `make_batch_buffer`; it distributes at once
-(the step returns host values). A ragged chain is one element.
-
 A uniform that is the same in every lane reaches the step as the
 Python value; one that differs as a (B, 1) f64 tensor on the batch's
 device. Host-int state entries (gstpu_torch.ops.loudnorm_dev.HOST_INTS)
@@ -68,6 +60,9 @@ batched elementwise and state rows are independent.
 Metas: a head that submits one block per buffer (the video filters,
 one frame a block) passes the buffer's metas to `submit`; the chain's
 outputs take them in order, as its unbatched path would.
+
+ItemContext, at the end of the module, batches whole items of any size
+(llamatexttransform's prompts) under the same names.
 """
 
 from __future__ import annotations
@@ -196,6 +191,12 @@ def _is_device(x) -> bool:
     return isinstance(x, (torch.Tensor, DeviceRow))
 
 
+def _downstream(element):
+    """The element on the other side of `element`'s src pad, if any."""
+    peer = getattr(getattr(element, "srcpad", None), "peer", None)
+    return getattr(peer, "element", None)
+
+
 def _tree_map(fn, *trees):
     """fn over the leaves of equally shaped trees of dicts, tuples and
     lists."""
@@ -305,6 +306,10 @@ class DeviceContext:
             # set it at finalize); None = default audio block
             ctx = cls._registry[name] = DeviceContext(
                 name, 19_200 if block is None else block, depth)
+        elif not isinstance(ctx, DeviceContext):
+            raise ValueError(
+                f"device-context {name!r} is held by an item context of "
+                f"whole items, not sample streams")
         elif block and ctx.block != block:
             raise ValueError(
                 f"device-context {name!r} exists with block "
@@ -338,7 +343,6 @@ class DeviceContext:
         # split back only on demand
         self._batched = None          # (chain_id_tuple, states tuple)
         self._uni_cache = None        # (values key, uniforms)
-        self._ragged = False          # members submit whole items
 
     # -- membership -----------------------------------------------------
     def add_member(self, element) -> _Member:
@@ -372,9 +376,6 @@ class DeviceContext:
         if m is not None:
             self.members.remove(m)
             self.chains = None
-            # a member and its chain point at each other: unlink them, so
-            # that what the member's spec holds (a model) goes with it
-            m.chain = m.spec = None
         if not self.members:
             DeviceContext._registry.pop(self.name, None)
 
@@ -389,14 +390,7 @@ class DeviceContext:
         if not fin:
             return False
         by_el = {id(m.element): m for m in fin}
-
-        def downstream(m):
-            src = getattr(m.element, "srcpad", None)
-            peer = getattr(src, "peer", None)
-            el = getattr(peer, "element", None)
-            return by_el.get(id(el)) if el is not None else None
-
-        downs = {id(m): downstream(m) for m in fin}
+        downs = {id(m): by_el.get(id(_downstream(m.element))) for m in fin}
         tails = {id(d) for d in downs.values() if d is not None}
         heads = [m for m in fin if id(m) not in tails]
         chains = []
@@ -423,11 +417,6 @@ class DeviceContext:
                 f"{sorted(set(key), key=repr)} (all chains of one context "
                 f"must run the same step sequence)")
         self.key = key[0]
-        self._ragged = bool(chains[0].stages[0].spec.get("ragged"))
-        if self._ragged and any(len(c.members) > 1 for c in chains):
-            raise ValueError(
-                f"device-context {self.name!r}: a ragged chain is one "
-                f"element")
         self.chains = chains
         self._fused = self._compose([s.spec for s in chains[0].stages])
         self._prime_n = max((s.spec.get("prime_blocks", 1)
@@ -556,33 +545,20 @@ class DeviceContext:
                 m.dtype = samples.dtype
                 m.rate = rate
                 m.pending.extend(samples.tobytes())
-            self._gate(m)
-
-    def submit_item(self, element, item, pts, duration) -> None:
-        """Queue one whole item of a ragged member (its spec's `ragged`),
-        with the pts and duration its output takes."""
-        with span("context.submit", pts):
-            m = self.member_for(element)
-            m.dev_rows.append((item, pts, duration))
-            m.dev_avail += 1
-            self._gate(m)
-
-    def _gate(self, m: _Member) -> None:
-        """Fire if `m`'s submission made every active chain ready.
-        Incremental: a fire needs EVERY active chain ready, so only this
-        member's own readiness can have changed here; try_fire recounts
-        exactly whenever it scans, so the mirror can never wedge the
-        context."""
-        c = m.chain
-        if (c is not None and self.chains is not None
-                and not self._has_unfinalized and m.active):
-            now = self._avail(m) >= self._need(c)
-            if now != m.ready:
-                m.ready = now
-                self._n_ready += 1 if now else -1
-            if self._n_ready < self._n_active:
-                return
-        self.try_fire()
+            # incremental gate: a fire needs EVERY active chain ready,
+            # so only this member's own readiness can have changed here;
+            # try_fire recounts exactly whenever it scans, so the mirror
+            # can never wedge the context
+            c = m.chain
+            if (c is not None and self.chains is not None
+                    and not self._has_unfinalized and m.active):
+                now = self._avail(m) >= self._need(c)
+                if now != m.ready:
+                    m.ready = now
+                    self._n_ready += 1 if now else -1
+                if self._n_ready < self._n_active:
+                    return
+            self.try_fire()
 
     def _avail(self, m: _Member) -> int:
         if m.dev_rows:
@@ -722,41 +698,7 @@ class DeviceContext:
             x = x.reshape((x.shape[0],) + sshape)
         return x
 
-    def _consumed(self, ready: list[_Chain]) -> None:
-        """Mark the fired chains primed and keep the incremental
-        readiness mirror exact: the fired heads just consumed a block
-        (and may have flipped primed, which changes their need)."""
-        for c in ready:
-            c.primed = True
-        for c in ready:
-            h = c.head
-            now = h.active and self._avail(h) >= self._need(c)
-            if now != h.ready:
-                h.ready = now
-                self._n_ready += 1 if now else -1
-        self.fire_count += 1
-
-    def _fire_items(self, ready: list[_Chain]) -> None:
-        """A ragged fire: one item of every ready chain through the step
-        in one call, the outputs distributed at once."""
-        with span("context.fire", self.fire_count + 1):
-            taken = []
-            for c in ready:
-                h = c.head
-                taken.append(h.dev_rows.pop(0))
-                h.dev_avail -= 1
-            outs = ready[0].stages[0].spec["step"](
-                [item for item, _, _ in taken])
-            self._consumed(ready)
-        with span("context.distribute", self.fire_count):
-            for c, (_, pts, dur), out in zip(ready, taken, outs):
-                if c.head.active:
-                    el = c.tail.element
-                    el.srcpad.push(el.make_batch_buffer(out, pts, dur))
-
     def _fire(self, ready: list[_Chain]) -> None:
-        if self._ragged:
-            return self._fire_items(ready)
         with span("context.fire", self.fire_count + 1):
             priming = not ready[0].primed
             n = self.block * (self._prime_blocks() if priming else 1)
@@ -811,7 +753,18 @@ class DeviceContext:
             states, out, aux = fn(states, x, unis)
             self._batched = (ids, states)
             aux = [AuxView(a) if isinstance(a, dict) else a for a in aux]
-            self._consumed(ready)
+            for c in ready:
+                c.primed = True
+            # keep the incremental readiness mirror exact: the fired heads
+            # just consumed a block (and may have flipped primed, which
+            # changes their need)
+            for c in ready:
+                h = c.head
+                now = h.active and self._avail(h) >= self._need(c)
+                if now != h.ready:
+                    h.ready = now
+                    self._n_ready += 1 if now else -1
+            self.fire_count += 1
             CAT.log("context %s: fired batch of %d chains x %d (%s, "
                     "total %d)", self.name, len(ready), n,
                     "prime" if priming else "step", self.fire_count)
@@ -882,18 +835,6 @@ class DeviceContext:
             return []
         self.flush_pending()
         self._writeback()
-        if self._ragged:
-            # the member's queued items alone, in order
-            step = chain.stages[0].spec["step"]
-            out_bufs = []
-            while m.dev_rows:
-                item, pts, dur = m.dev_rows.pop(0)
-                m.dev_avail -= 1
-                out_bufs.append(m.element.make_batch_buffer(
-                    step([item])[0], pts, dur))
-            m.active = False
-            self.try_fire()
-            return out_bufs
         step, prime, n_stages, _final = self._fused
         hspec = chain.stages[0].spec
         cdtype = hspec.get("compute_dtype", np.float64)
@@ -979,6 +920,98 @@ class DeviceContext:
                 chain.tail.element.srcpad.push(b)
             return []
         return out_bufs
+
+
+@dataclass
+class _ItemMember:
+    element: object
+    items: deque = field(default_factory=deque)   # (item, pts, duration)
+    active: bool = True
+
+
+class ItemContext:
+    """A named batch of whole items of any size, one from each member a
+    fire (llamatexttransform's prompts).
+
+    An element joins in start() with a key (members must match) and a
+    step f(items: list) -> list, and leaves in stop(). `submit` queues
+    one item with the pts and duration its output takes. When every
+    active member has an item queued, the step runs once on the list of
+    their first items and output i goes out through member i's
+    `make_batch_buffer(out, pts, duration)` on its src pad. At EOS
+    (`flush_member`) a member's queued items are served alone, in order,
+    and the others then fire without it. Names are DeviceContext's: a
+    name is held by one context of either kind, and
+    `DeviceContext.release` clears both."""
+
+    @classmethod
+    def join(cls, name: str, element, key, step) -> "ItemContext":
+        ctx = DeviceContext._registry.get(name)
+        if ctx is None:
+            ctx = DeviceContext._registry[name] = cls(name, key, step)
+        elif not isinstance(ctx, ItemContext):
+            raise ValueError(
+                f"context {name!r} is a device-context of sample streams, "
+                f"not of whole items")
+        elif ctx.key != key:
+            raise ValueError(
+                f"context {name!r} runs {ctx.key!r}, its new member "
+                f"{key!r} (every member of one context must run the same "
+                f"step)")
+        for m in ctx.members.values():
+            if _downstream(m.element) is element \
+                    or _downstream(element) is m.element:
+                raise ValueError(
+                    f"context {name!r}: {m.element.name} and "
+                    f"{element.name} are linked through pads (a fire "
+                    f"would wait on its own output)")
+        ctx.members[element] = _ItemMember(element)
+        return ctx
+
+    def __init__(self, name: str, key, step):
+        self.name = name
+        self.key = key
+        self.step = step
+        self.members: dict[object, _ItemMember] = {}   # by element
+        self.fire_count = 0
+
+    def leave(self, element) -> None:
+        self.members.pop(element, None)
+        if not self.members:
+            DeviceContext._registry.pop(self.name, None)
+
+    def submit(self, element, item, pts, duration) -> None:
+        with span("context.submit", pts):
+            self.members[element].items.append((item, pts, duration))
+            self._try_fire()
+
+    def _try_fire(self) -> None:
+        live = [m for m in self.members.values() if m.active]
+        while live and all(m.items for m in live):
+            self._fire(live)
+
+    def _fire(self, members: list[_ItemMember]) -> None:
+        with span("context.fire", self.fire_count + 1):
+            taken = [m.items.popleft() for m in members]
+            outs = self.step([item for item, _, _ in taken])
+            self.fire_count += 1
+        with span("context.distribute", self.fire_count):
+            for m, (_, pts, dur), out in zip(members, taken, outs):
+                el = m.element
+                el.srcpad.push(el.make_batch_buffer(out, pts, dur))
+
+    def flush_member(self, element) -> list[Buffer]:
+        """EOS: the member's queued items alone, in order, as buffers for
+        its element to push; then the other members may fire."""
+        m = self.members[element]
+        bufs = []
+        while m.items:
+            item, pts, dur = m.items.popleft()
+            bufs.append(element.make_batch_buffer(self.step([item])[0],
+                                                  pts, dur))
+        m.active = False
+        self._try_fire()
+        return bufs
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,7 @@ Spans (request in brackets; a span without one takes its parent's):
   waiting for the card's answer to the segment loop's test;
 * `context.submit` (buffer pts), `context.fire` (fire number),
   `context.distribute` (the number of the fire distributed):
-  `runtime/device_batch.py` `DeviceContext`;
+  `runtime/device_batch.py` `DeviceContext` and `ItemContext`;
 * `pipeline.iterate`: `core/bin.py` `Pipeline.iterate`;
   `appsrc.push` (buffer pts), `appsink.pull`:
   `elements/generic/app.py` `push_buffer`, `pull_all`.
@@ -419,20 +419,17 @@ class _Thread:
     """One thread's open spans and what it recorded. Only its own thread
     writes it (but `reset`), so the span sites take no lock."""
 
-    __slots__ = ("tracer", "stack", "names", "layers", "sums",
-                 "layer_sums", "counters", "intervals", "samples",
-                 "device")
+    __slots__ = ("tracer", "stack", "names", "sums", "counters",
+                 "intervals", "samples", "device")
 
     def __init__(self, tracer: "ProgramSpans"):
         self.tracer = tracer
         self.stack: list = []        # the open spans, innermost last
         self.names: list = []        # their names
-        self.layers: list = []       # their layers
         self.clear()
 
     def clear(self) -> None:
-        self.sums: dict = {}         # name -> [total_ns, self_ns, calls]
-        self.layer_sums: dict = {}   # layer -> [ns, calls]
+        self.sums: dict = {}         # name -> [total_ns, calls]
         self.counters: dict = {}
         self.intervals: list = []
         self.samples: list = []
@@ -447,8 +444,8 @@ class _Local(threading.local):
 
 
 class _Span:
-    __slots__ = ("th", "name", "layer", "request", "device", "id",
-                 "parent", "t0", "child_ns", "ev0", "outer", "outer_layer")
+    __slots__ = ("th", "name", "request", "device", "id", "parent", "t0",
+                 "ev0", "outer")
 
     def __init__(self, th: _Thread, name: str, request, device: bool):
         self.th, self.name = th, name
@@ -457,21 +454,14 @@ class _Span:
     def __enter__(self):
         th, name = self.th, self.name
         tr = th.tracer
-        layer = tr._layer_of.get(name)
-        if layer is None:
-            layer = tr._layer_of[name] = name.partition(".")[0]
-        self.layer = layer
         stack = th.stack
         parent = stack[-1] if stack else None
         self.parent = parent
         if self.request is None and parent is not None:
             self.request = parent.request
         self.outer = name not in th.names
-        self.outer_layer = layer not in th.layers
         stack.append(self)
         th.names.append(name)
-        th.layers.append(layer)
-        self.child_ns = 0
         self.ev0 = None
         if tr.keeping:
             self.id = next(tr._ids)
@@ -487,25 +477,14 @@ class _Span:
         ev1 = tr._mark() if self.ev0 is not None else None
         th.stack.pop()
         th.names.pop()
-        th.layers.pop()
-        dur = t1 - self.t0
-        parent = self.parent
-        if parent is not None:
-            parent.child_ns += dur
-        v = th.sums.get(name)
-        if v is None:
-            v = th.sums[name] = [0, 0, 0]
-        v[1] += dur - self.child_ns
         if self.outer:
-            v[0] += dur
-            v[2] += 1
-        if self.outer_layer:
-            v = th.layer_sums.get(self.layer)
+            v = th.sums.get(name)
             if v is None:
-                v = th.layer_sums[self.layer] = [0, 0]
-            v[0] += dur
+                v = th.sums[name] = [0, 0]
+            v[0] += t1 - self.t0
             v[1] += 1
         if tr.keeping:
+            parent = self.parent
             th.intervals.append(
                 (self.t0, t1, name, self.id,
                  parent.id if parent is not None else 0, self.request,
@@ -521,12 +500,9 @@ class ProgramSpans(Tracer):
     program's spans (`span`, `count`), on `time.perf_counter_ns()`.
 
     For each span name it sums the time and calls of its outermost spans
-    (a name nested in itself counts once) and the self time of all of
-    them (a span's duration less its children's); for each layer (the
-    name up to its first dot) the time and calls of the layer's
-    outermost spans, so `context.fire` inside `context.submit` counts
-    once. `snapshot()` adds up every thread's. A span's parent is the
-    innermost span open on its own thread.
+    (a name nested in itself counts once). `snapshot()` adds up every
+    thread's. A span's parent is the innermost span open on its own
+    thread.
 
     Intervals (start_ns, end_ns, name, id, parent id, request, thread)
     and counter samples (each thread's running count) are kept between
@@ -543,8 +519,7 @@ class ProgramSpans(Tracer):
     lock; `reset` and `snapshot` are exact while no other thread is
     inside a span."""
 
-    SUMS = ("total_ns", "self_ns", "calls", "layer_ns", "layer_calls",
-            "counters")
+    SUMS = ("total_ns", "calls", "counters")
 
     def __init__(self, file: str | None = None, device=False):
         super().__init__(file=file, device=device)
@@ -554,7 +529,6 @@ class ProgramSpans(Tracer):
         self._lock = threading.Lock()
         self._threads: list[_Thread] = []
         self._local = _Local(self)
-        self._layer_of: dict[str, str] = {}
         self._ids = itertools.count(1)
         self._cuda = None           # (torch.cuda, anchor event, its ns)
         if self.file:
@@ -619,14 +593,9 @@ class ProgramSpans(Tracer):
         """{sum: {name: int}} for each of SUMS, over every thread."""
         out = {k: defaultdict(int) for k in self.SUMS}
         for th in self._each():
-            for name, (total, own, calls) in list(th.sums.items()):
-                if calls:
-                    out["total_ns"][name] += total
-                    out["calls"][name] += calls
-                out["self_ns"][name] += own
-            for layer, (ns, calls) in list(th.layer_sums.items()):
-                out["layer_ns"][layer] += ns
-                out["layer_calls"][layer] += calls
+            for name, (total, calls) in list(th.sums.items()):
+                out["total_ns"][name] += total
+                out["calls"][name] += calls
             for name, v in list(th.counters.items()):
                 out["counters"][name] += v
         return {k: dict(v) for k, v in out.items()}

@@ -1,6 +1,7 @@
 """The port's own deepseek_v3 model (gstpu_torch/models/deepseek_v3.py),
-its plain reference (reference/deepseek_v3.py) and llamatexttransform's
-config-only path and `context`, on the CPU at a tiny size of Moonlight's
+its plain reference (perfbench/reference/moonlight.py) and
+llamatexttransform's config-only path and `context`, on the CPU at a
+tiny size of Moonlight's
 shape: 3 layers (1 dense), 8 routed experts of which 3 a token, 2 shared,
 latent attention of rank 32; and the roofline counts of
 perfbench/roofline_llm.py against a count by hand at Moonlight's sizes.
@@ -10,7 +11,7 @@ same weights, f32, 1e-5 relative; (b) the port's prefill and cached
 absorbed decode against the reference's full forward pass: f32 within
 1e-5, bf16 within BF16_REL (routed to the port's experts); (c) the
 grouped expert layer against a loop over the experts; (d) three
-pipelines in one DeviceContext against each alone; (e) the roofline
+pipelines in one ItemContext against each alone; (e) the roofline
 counts. Nothing is downloaded: the weights are drawn from seeds.
 """
 
@@ -59,7 +60,8 @@ PROMPTS = [[(7 * n + 3 * i) % 256 for i in range(n)] for n in (9, 30, 17)]
 def _ref():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "reference_deepseek_v3", ROOT / "reference" / "deepseek_v3.py")
+        "reference_moonlight", ROOT / "perfbench" / "reference"
+        / "moonlight.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -342,14 +344,50 @@ def test_eos_serves_a_queued_prompt_alone(tmp_path):
         p.set_state(gstpu_torch.State.NULL)
 
 
-def test_reference_copy_in_the_benchmark_is_the_reference():
-    """perfbench/reference/moonlight.py is reference/deepseek_v3.py."""
-    assert (ROOT / "perfbench" / "reference" / "moonlight.py").read_text() \
-        == (ROOT / "reference" / "deepseek_v3.py").read_text()
+ECHO = "audiotestsrc ! rsaudioecho context=CTX ! fakesink"
+LM = ('appsrc caps="text/x-raw, format=utf8" ! llamatexttransform '
+      'model-path=PATH temp=0 context=CTX{} ! appsink')
+
+
+@pytest.mark.parametrize("launches,release,message", [
+    ([ECHO, LM.format("")], False, "of sample streams"),
+    ([LM.format(""), ECHO], False, "held by an item context"),
+    ([LM.format(""), LM.format(" max-tokens=5")], False, "same step"),
+    ([LM.format(" ! llamatexttransform model-path=PATH temp=0 "
+                "context=CTX")], False, "linked through pads"),
+    ([LM.format(""), ECHO], True, None)],
+    ids=["sample-then-items", "items-then-sample", "max-tokens",
+         "linked", "release"])
+def test_item_context_refusals(tmp_path, launches, release, message):
+    """A context name is held by sample streams or by whole items, not
+    both; an item context's members run one model and max-tokens and are
+    not linked through pads; DeviceContext.release frees the name of an
+    item context. The last pipeline's start is refused with `message`."""
+    from gstpu_torch.runtime.device_batch import DeviceContext
+    path, name = _model_dir(tmp_path), f"items-{tmp_path.name}"
+    gstpu_torch.init(device="cpu")
+    pipes = [gstpu_torch.parse_launch(
+        launch.replace("PATH", path).replace("CTX", name))
+        for launch in launches]
+    try:
+        for p in pipes[:-1]:
+            p.set_state(gstpu_torch.State.READY)
+            assert p._error_seen is None, p._error_seen
+        if release:
+            DeviceContext.release(name)
+        pipes[-1].set_state(gstpu_torch.State.READY)
+        err = pipes[-1]._error_seen
+        if message is None:
+            assert err is None, err
+        else:
+            assert err is not None and message in err.fields["text"]
+    finally:
+        for p in pipes:
+            p.set_state(gstpu_torch.State.NULL)
 
 
 def test_reference_imports_nothing_of_the_program():
-    text = (ROOT / "reference" / "deepseek_v3.py").read_text()
+    text = (ROOT / "perfbench" / "reference" / "moonlight.py").read_text()
     assert "gstpu" not in text and "jax" not in text and "triton" not in text
 
 
