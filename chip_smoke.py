@@ -37,13 +37,23 @@ of every kernel library in DIR and needs no card.)
    the prime's 30 calls on frames sliced from 3 s at 768 lanes, each
    form carrying its own states; times it at 96 and 768 lanes (median of
    30 launches, CUDA events, L2 flushed) beside its bound, its f64
-   operations at the unfused rate and the plain form's time; then runs
+   operations at the unfused rate and the plain form's time; holds the
+   limiter kernel (kernels/limiter.cu, loudnorm_dev._limiter_frame)
+   against _limiter_frame_plain on the card, torch.equal on the window,
+   the output and every state and equal iterations, at 1, 96 (1 and 2
+   channels) and 768 lanes of random states, spikes and plateaus, with
+   nb = FRAME and nb < FRAME, then the exact chain at 96 lanes (the odd
+   ones driving the limiter), the prime and 20 steps on the kernel route
+   against the same on the plain route: outputs, meters and state
+   identical; times it at 96 and 768 lanes beside its bytes bound and
+   the plain form; then runs
    the audio flagship chain `rsaudioecho ! audioloudnorm !
    ebur128level` (make_audiofx_exact_chain) at full width on the card:
    96 streams of 192 kHz F64 stereo, a 0.25 s echo, primed with 3 s,
    then 6 settling and 20 timed 100 ms steps over a 12-frame input
    bank made on the card; prints the realtime multiple, the device and
-   host time of each stage of a step, the limiter's loop iterations, a
+   host time of each stage of a step, the limiter's kernel frames and
+   iterations (no host wait), a
    profiler window's kernel launches, busy share and kernel time by
    stage, and the fused meter's loudness. It checks lane 0 of a
    1-stream run against the 96-stream run bit for bit, 2 streams on
@@ -52,7 +62,8 @@ of every kernel library in DIR and needs no card.)
    limiter out of its rest state), and an `audiotestsrc ! rsaudioecho !
    appsink` pipeline on the card against the CPU bit for bit; checks
    that the measurement took the kernel (31 launches in the prime, 2 a
-   step); and times each main-path function (echo, the K-weighting
+   step) and the limiter its own (1 and 1); and times each main-path
+   function (echo, the K-weighting
    kernel, limiter) alone beside its bytes bound;
 7. runs the element form through DeviceContext: (a) 96 parse_launch
    pipelines of `appsrc ! rsaudioecho ! audioloudnorm ! ebur128level !
@@ -391,6 +402,11 @@ AUDIO_EOS_STEPS = 4          # element form: the EOS pair's full frames
 # is timed at (phase 6's and the benchmark cell's)
 KWEIGHT_LANES = (1, 3, 96, 768)
 KWEIGHT_TIMED_LANES = (96, 768)
+# the limiter kernel's check (phase 6): its lanes, a short last frame's
+# nb, and the chain steps held against the plain route
+LIMITER_LANES = (1, 96, 768)
+LIMITER_SHORT_NB = 7_001
+LIMITER_CHAIN_STEPS = 20
 # the f64 rate outside the tensor cores (NVIDIA's H100 SXM data sheet);
 # the device denoisers' products and sums run there
 F64_OPS_PER_S = 34e12
@@ -867,14 +883,12 @@ def audio_bounds(B: int, C: int) -> dict:
     the delayed samples read and the new ones written (the frame is
     shorter than the delay); kweight: the frame read, the two stages'
     states read and written and a frame's energies written (2 calls a
-    step); _limiter_frame with the gain machine: the |x| window it
-    scans, the enveloped head and the clipped output written, and the
-    4096-block gating history read."""
-    from gstpu_torch.ops.loudnorm_dev import ABSW, FRAME
+    step); _limiter_frame: `limiter_bytes`."""
+    from gstpu_torch.ops.loudnorm_dev import FRAME
     n = FRAME * C
     by = {"echo_block": 4 * B * n * 8,
           "kweight": kweight_bytes(B, C),
-          "_limiter_frame": B * (ABSW * C + 2 * n + 4096) * 8}
+          "_limiter_frame": limiter_bytes(B, C)}
     return {k: (v, v / HBM_BYTES_PER_S * 1e3) for k, v in by.items()}
 
 
@@ -963,6 +977,15 @@ def kweight_bytes(B: int, C: int) -> int:
     stages' (B*C, 2) states read and written, the energies written."""
     from gstpu_torch.ops.loudnorm_dev import FRAME
     return 8 * (B * FRAME * C + 8 * B * C + B * C)
+
+
+def limiter_bytes(B: int, C: int) -> int:
+    """Least bytes of one limiter frame (kernels/limiter.cu): the window
+    read once and the new window written (the state is functional), the
+    clipped head written, and the five states read and written with the
+    iteration counts."""
+    from gstpu_torch.ops.loudnorm_dev import FRAME, LIM
+    return 8 * B * (2 * LIM * C + FRAME * C) + 8 * B * 12
 
 
 def kweight_ops(B: int, C: int) -> int:
@@ -1068,6 +1091,191 @@ def kweight_phase(dev, smi, flush) -> dict:
                           if "registers" in line]}
 
 
+def limiter_windows(B: int, C: int, gen, dev) -> tuple:
+    """Limiter inputs made on the card: each lane's window a quiet sine
+    and noise with 0-40 one-sample spikes of 0.5-1.2 (one channel or
+    all) and, in a third of the lanes, a 60-sample plateau at 0.9 (a
+    peak at every position); random states: each of OUT, ATT, SUS, REL
+    with its counters in range and gains in [0.5, 1]."""
+    from gstpu_torch.ops import loudnorm_dev as ln
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def ints(lo, hi, n=B):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    n = torch.arange(ln.LIM, **f64)
+    phase = 6.3 * torch.rand(B, 1, generator=gen, **f64)
+    x = (0.01 * torch.sin(2 * np.pi * 300.0 * n / 192_000.0 + phase)
+         )[:, :, None] + 1e-4 * torch.randn(B, ln.LIM, C, generator=gen,
+                                             **f64)
+    k = 40
+    rows = torch.arange(B, device=dev)[:, None].expand(B, k)
+    pos = torch.randint(1, ln.ABSW - 1, (B, k), generator=gen, device=dev)
+    h = 0.5 + 0.7 * torch.rand(B, k, generator=gen, **f64)
+    keep = torch.rand(B, k, generator=gen, **f64) < torch.rand(
+        B, 1, generator=gen, **f64)
+    ch = torch.randint(0, C + 1, (B, k), generator=gen, device=dev)
+    for c in range(C):
+        m = keep & ((ch == c) | (ch == C))
+        x[rows[m], pos[m], c] = h[m]
+    start = torch.randint(1, ln.ABSW - 200, (B,), generator=gen, device=dev)
+    lanes = torch.nonzero(torch.rand(B, generator=gen, **f64) < 1 / 3)[:, 0]
+    for i in range(60):
+        x[lanes, start[lanes] + i, :] = 0.9
+    ls = ints(0, 4)
+    env = torch.where(ls == ln.REL, ints(0, ln.RELEASE + 1),
+                      ints(0, ln.ATTACK + 1))
+    sus = torch.where(ints(0, 3) == 0, -1, ints(0, ln.LOOKAHEAD + 1))
+    g = 0.5 + 0.5 * torch.rand(2, B, generator=gen, **f64)
+    gr0, gr1 = g.min(0).values, g.max(0).values
+    return x.reshape(B, ln.LIM * C), gr0, gr1, ls, env, sus
+
+
+def limiter_phase(dev, smi, flush, x0, bank) -> dict:
+    """6. (second) The limiter kernel (kernels/limiter.cu,
+    loudnorm_dev._limiter_frame on the card) against its plain form on
+    the card, bit for bit, its time, and the exact chain on each
+    route."""
+    from gstpu_torch.ops import loudnorm_dev as ln
+    from gstpu_torch.parallel.chains import make_audiofx_exact_chain
+    K = ln.LIMITER_KERNEL
+    K.load()
+    log(f"[limiter] {K.library_path.name}, nvcc {K.build_seconds}")
+    for line in K.compiler_output.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"    {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    names = ("lim", "out", "gr0", "gr1", "lstate", "env_cnt", "sus")
+    checks = []
+
+    def frame_iterations(fn):
+        """fn()'s result and the limiter.iterations it counted."""
+        with program_spans() as spans:
+            got = fn()
+            torch.cuda.synchronize()
+            ln.count_limiter_iterations(wait=True)
+        return got, spans.snapshot()["counters"]
+
+    launches0 = K.launches
+    for B in LIMITER_LANES:
+        for C in (1, 2) if B == 96 else (2,):
+            params = ln.LoudnormParams(channels=C)
+            args = limiter_windows(B, C, gen, dev)
+            for nb in (ln.FRAME, LIMITER_SHORT_NB):
+                got, kc = frame_iterations(
+                    lambda: ln._limiter_frame(params, *args, nb))
+                want, pc = frame_iterations(
+                    lambda: ln._limiter_frame_plain(params, *args, nb))
+                same = [n for n, g, w in zip(names, got, want)
+                        if not (g.dtype == w.dtype and torch.equal(g, w))]
+                case = {"case": f"B={B} C={C} nb={nb}", "differ": same,
+                        "iterations": kc.get("limiter.iterations"),
+                        "plain_iterations": pc.get("limiter.iterations"),
+                        "kernel_frames": kc.get("limiter.kernel_frames"),
+                        "lanes_changed": int((got[4] != args[3]).sum())}
+                checks.append(case)
+                log(f"[limiter] {case}")
+                if same or case["iterations"] != case["plain_iterations"] \
+                        or case["kernel_frames"] != 1:
+                    raise AssertionError(f"the limiter kernel differs from "
+                                         f"its plain form: {case}")
+    launches = K.launches - launches0
+    log(f"[limiter] {len(checks)} cases, torch.equal on every output and "
+        f"state, iterations equal; {launches} launches")
+
+    # the exact chain at 96 lanes, the odd ones driving the limiter: the
+    # prime and LIMITER_CHAIN_STEPS steps with the kernel, and with the
+    # plain form in its place
+    B, C = AUDIO_STREAMS, AUDIO_CHANNELS
+    args = (AUDIO_INTENSITY, AUDIO_FEEDBACK)
+    xp = x0.clone()
+    xp[1::2] = limiter_signal(x0.shape[1], 440.0, dev)
+    xs = []
+    for k in range(LIMITER_CHAIN_STEPS):
+        x = bank[k % AUDIO_BANK].clone()
+        x[1::2] = limiter_signal(x.shape[1], 300.0 + 40 * k, dev)
+        xs.append(x)
+
+    def chain_run():
+        prime, step, init, _, _ = make_audiofx_exact_chain(
+            channels=C, echo_delay=AUDIO_DELAY, max_delay=AUDIO_DELAY)
+        st, out = prime(init(B, device=dev), xp, *args)
+        outs, meters = [out], []
+        for x in xs:
+            st, out, m = step(st, x, *args)
+            outs.append(out)
+            meters.append((m["momentary"], m["shortterm"]))
+        return st, outs, meters
+
+    n0 = K.launches
+    (kst, kout, kmet), kc = frame_iterations(chain_run)
+    chain_launches = K.launches - n0
+    kernel_route = ln._limiter_frame
+    ln._limiter_frame = ln._limiter_frame_plain
+    try:
+        (pst, pout, pmet), pc = frame_iterations(chain_run)
+    finally:
+        ln._limiter_frame = kernel_route
+    differ = [f"out {k}" for k, (a, b) in enumerate(zip(kout, pout))
+              if not torch.equal(a, b)]
+    differ += [f"meters {k}" for k, (a, b) in enumerate(zip(kmet, pmet))
+               if not all(torch.equal(u, v) for u, v in zip(a, b))]
+    flat = [("tail", kst["tail"], pst["tail"])] + [
+        (f"ln.{k}", v, pst["ln"][k]) for k, v in kst["ln"].items()]
+    differ += [f"state {k}" for k, v, w in flat
+               if not (torch.equal(v, w) if isinstance(v, torch.Tensor)
+                       else v == w)]
+    lstates = sorted(set(kst["ln"]["lstate"].tolist()))
+    chain = {"lanes": B, "steps": LIMITER_CHAIN_STEPS,
+             "kernel_launches": chain_launches,
+             "iterations": kc.get("limiter.iterations"),
+             "plain_iterations": pc.get("limiter.iterations"),
+             "final_lstates": lstates,
+             "differ": differ}
+    log(f"[limiter] the exact chain, {B} lanes, prime + "
+        f"{LIMITER_CHAIN_STEPS} steps, kernel vs plain route on the card: "
+        f"{'identical' if not differ else differ}; {chain_launches} "
+        f"kernel launches; iterations {chain['iterations']} (plain "
+        f"{chain['plain_iterations']}); limiter states at the end "
+        f"{lstates}")
+    if differ or chain_launches != LIMITER_CHAIN_STEPS + 1 \
+            or chain["iterations"] != chain["plain_iterations"]:
+        raise AssertionError(f"the chain's kernel route differs: {chain}")
+    if chain["iterations"] <= 2 * (LIMITER_CHAIN_STEPS + 1):
+        raise AssertionError("the chain check did not drive the limiter")
+
+    rows = []
+    for B in KWEIGHT_TIMED_LANES:
+        C = 2
+        params = ln.LoudnormParams(channels=C)
+        a = limiter_windows(B, C, gen, dev)
+        n_bytes = limiter_bytes(B, C)
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        _, kc = frame_iterations(
+            lambda: ln._limiter_frame(params, *a, ln.FRAME))
+        row = {"name": "limiter_frame", "lanes": B, "channels": C,
+               "ms": time_ms(lambda: ln._limiter_frame(params, *a,
+                                                       ln.FRAME), flush),
+               "plain_ms": time_ms(lambda: ln._limiter_frame_plain(
+                   params, *a, ln.FRAME), flush, n=5),
+               "bound_ms": bound, "bound_by": "bytes", "bytes": n_bytes,
+               "iterations": kc.get("limiter.iterations"),
+               "library_ms": None}
+        row["gb_per_s"] = n_bytes / row["ms"] / 1e6
+        rows.append(row)
+        log(f"[limiter] B={B} C={C}, one frame of random states and "
+            f"spikes ({row['iterations']} iterations): {row['ms']:.4f} ms "
+            f"(median of {N_TIMED}, L2 flushed), bound {bound:.4f} ms "
+            f"(bytes, {n_bytes} B), {row['gb_per_s']:.0f} GB/s; plain "
+            f"{row['plain_ms']:.3f} ms  [{smi}]")
+    return {"checks": checks, "launches": launches, "chain": chain,
+            "times": rows,
+            "registers": [line.strip() for line in
+                          K.compiler_output.splitlines()
+                          if "registers" in line]}
+
+
 def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     """6. The audio flagship chain at full width, its checks and its
     per-stage and per-kernel times."""
@@ -1081,11 +1289,13 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
         channels=C, echo_delay=AUDIO_DELAY, max_delay=AUDIO_DELAY)
 
     kweight0 = ln.KWEIGHT_KERNEL.launches
+    limiter0 = ln.LIMITER_KERNEL.launches
     t0 = time.perf_counter()
     state, out = prime(init(B, device=dev), x0, *args)
     torch.cuda.synchronize()
     prime_s = time.perf_counter() - t0
     kweight_prime = ln.KWEIGHT_KERNEL.launches - kweight0
+    limiter_prime = ln.LIMITER_KERNEL.launches - limiter0
     lane0 = [out[0].clone()]
     for k in range(AUDIO_SETTLE):
         state, out, meters = step(state, bank[k % AUDIO_BANK], *args)
@@ -1094,6 +1304,7 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     torch.cuda.synchronize()
 
     kweight0 = ln.KWEIGHT_KERNEL.launches
+    limiter0 = ln.LIMITER_KERNEL.launches
     t0 = time.perf_counter()
     for i in range(AUDIO_TIMED):
         state, out, meters = step(state, bank[i % AUDIO_BANK], *args)
@@ -1101,11 +1312,16 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     kweight_step = (ln.KWEIGHT_KERNEL.launches - kweight0) / AUDIO_TIMED
+    limiter_step = (ln.LIMITER_KERNEL.launches - limiter0) / AUDIO_TIMED
     log(f"[audio] the K-weighting kernel: {kweight_prime} launches in the "
-        f"prime, {kweight_step} a step")
+        f"prime, {kweight_step} a step; the limiter kernel: "
+        f"{limiter_prime} in the prime, {limiter_step} a step")
     if kweight_prime != 31 or kweight_step != 2:
         raise AssertionError("the measurement did not take the kernel: "
                              "31 launches a prime and 2 a step expected")
+    if limiter_prime != 1 or limiter_step != 1:
+        raise AssertionError("the limiter did not take the kernel: one "
+                             "launch a prime and one a step expected")
     rt = B * AUDIO_TIMED * 0.1 / wall
     shortterm = meters["shortterm"]
     if out.shape != (B, n_step) or not bool(torch.isfinite(out).all()) \
@@ -1119,12 +1335,14 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
 
     # each stage of a step on the program's tracer, over 5 steps
     # (medians): the card's time between the events recorded where its
-    # span opens and closes, the host's in the span; and the limiter
-    # loop's iterations a step
+    # span opens and closes, the host's in the span; and the limiter's
+    # frames and iterations a step (the kernel's counts reach the host
+    # after the card, so they are counted once it is done)
     with program_spans(device=True) as spans:
         for i in range(5):
             state, out, meters = step(state, bank[i % AUDIO_BANK], *args)
         torch.cuda.synchronize()
+        ln.count_limiter_iterations(wait=True)
     dev_ms = {k: [] for k in STAGES}
     host_ms = {k: [] for k in STAGES}
     for a, b, name, _id, _req in spans.device_intervals():
@@ -1136,11 +1354,15 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
     stage_host_ms = {k: statistics.median(v) for k, v in host_ms.items()}
     sums = spans.snapshot()
     loops = sums["counters"]["limiter.iterations"] / 5
-    wait_ms = sums["total_ns"]["limiter.wait"] / 5e6
+    kernel_frames = sums["counters"].get("limiter.kernel_frames", 0) / 5
+    waits = sums["calls"].get("limiter.wait", 0)
     log("[audio] stage ms a step, device (host): " + ", ".join(
         f"{k} {stage_ms[k]:.3f} ({stage_host_ms[k]:.3f})" for k in STAGES)
-        + f"; limiter loop {loops} iterations a step, the host waiting "
-        f"{wait_ms:.3f} ms a step on its tests")
+        + f"; limiter {kernel_frames} kernel frames and {loops} iterations "
+        f"a step (counted after the card), {waits} host waits")
+    if kernel_frames != 1 or waits:
+        raise AssertionError("the step's limiter did not take the kernel: "
+                             "one frame a step and no host wait expected")
 
     # a profiler window of 3 steps: the kernels launched, the device's
     # busy share, and each stage's kernel time (the profiler's device
@@ -1188,6 +1410,7 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
                 st2, o, _ = step(st2, x2[k + 1].to(where), *args)
                 outs.append(o.cpu())
                 trace.append(decisions(st2))
+            ln.count_limiter_iterations(wait=True)
         runs.append((outs, trace,
                      spans.snapshot()["counters"]["limiter.iterations"]))
     (card_outs, card_trace, card_loops), (cpu_outs, cpu_trace, _) = runs
@@ -1262,9 +1485,12 @@ def audio_phase(gstpu_torch, dev, smi, x0, bank) -> dict:
             "enqueue_ms": enqueue * 1e3, "prime_s": prime_s,
             "stage_ms": stage_ms, "stage_host_ms": stage_host_ms,
             "limiter_iterations_per_step": loops,
-            "limiter_wait_ms_per_step": wait_ms, "profile": profile,
+            "limiter_kernel_frames_per_step": kernel_frames,
+            "profile": profile,
             "kweight_launches_prime": kweight_prime,
             "kweight_launches_per_step": kweight_step,
+            "limiter_launches_prime": limiter_prime,
+            "limiter_launches_per_step": limiter_step,
             "shortterm_mean_lufs": st_mean,
             "lane0_b1_vs_b96_max_abs_diff": lane_diff,
             "card_vs_cpu_max_abs_diff": cpu_diff,
@@ -7834,8 +8060,10 @@ def main() -> int:
     t6 = time.monotonic()
     kweight = kweight_phase(dev, smi, flush)
     x0, audio_bank = audio_banks(dev)
+    limiter = limiter_phase(dev, smi, flush, x0, audio_bank)
     audio = audio_phase(gstpu_torch, dev, smi, x0, audio_bank)
     audio["kweight"] = kweight
+    audio["limiter"] = limiter
 
     # 7. the element form through DeviceContext: the audio chain as 96
     # parse_launch pipelines, the 4K chain batched through both kernels

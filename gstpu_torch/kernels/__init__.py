@@ -68,9 +68,10 @@ class CudaKernel:
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:12]}.so"
 
     def start_build(self) -> None:
-        """Start nvcc in the background unless the library is built
-        or being built."""
-        if self._pending is not None or self.library_path.exists():
+        """Start nvcc in the background unless the library is loaded,
+        built or being built."""
+        if self._lib is not None or self._pending is not None \
+                or self.library_path.exists():
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library_path.with_suffix(f".{os.getpid()}.tmp")

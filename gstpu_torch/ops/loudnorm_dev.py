@@ -8,12 +8,15 @@ true-peak limiter a batched segment machine, the K-weighting the exact
 block state-space biquads of gstpu_torch.ops.biquad.
 
 What differs from the JAX module, and why:
-* torch runs eagerly, so the limiter's `lax.while_loop` is a Python
-  loop that asks the device once per iteration whether any stream is
-  still short of the frame's end (the host waits for that answer in a
-  span `limiter.wait`; the counter `limiter.iterations` counts the
-  iterations, gstpu_torch.utils.tracing), and the fixed-trip scans are
-  Python loops;
+* the limiter's `lax.while_loop` (`_limiter_frame`) is, on the CPU,
+  a Python loop that asks once per iteration whether any stream is
+  still short of the frame's end (`_limiter_frame_plain`; the host
+  waits for that answer in a span `limiter.wait`), and on the card one
+  launch of the hand-written kernel kernels/limiter.cu, which runs the
+  segment machine there and returns the plain form's bits without a
+  host wait (the counters `limiter.iterations` and
+  `limiter.kernel_frames`, gstpu_torch.utils.tracing). The fixed-trip
+  scans are Python loops;
 * `nsub_in`, `nsub_out` and `gidx` are the same for every stream; JAX
   holds them as device scalars, the port as host ints, so the
   `lax.cond`s on them (`nsub >= 4`, the final step's `k < 29`) cost no
@@ -38,6 +41,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from collections import deque
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -48,7 +53,7 @@ from gstpu_torch.kernels import CudaKernel, stream_handle
 from gstpu_torch.ops.biquad import (_tree_sum_last, biquad_coeffs_highpass,
                                     biquad_coeffs_shelving,
                                     block_biquad_tables, make_block_biquad)
-from gstpu_torch.utils.tracing import count, span
+from gstpu_torch.utils.tracing import count, recording, span
 
 F64 = torch.float64
 I32 = torch.int32
@@ -102,9 +107,9 @@ class LoudnormParams:
     loudness_target: float = -24.0
     loudness_range_target: float = 7.0
     max_true_peak: float = -2.0
-    max_blocks: int = 4096      # gating history cap (409.6 s); the
-    # host element is unbounded — saturation drops newest blocks and
-    # is reported via state["bcount"] for callers that care.
+    max_blocks: int = 4096      # the gating history's first width
+    # (409.6 s); it doubles before it could fill, so that no block is
+    # dropped: the host element's history is unbounded too.
 
     @property
     def target_tp(self) -> float:
@@ -236,6 +241,9 @@ def kweight_kernel(z1, z2, x_flat, C: int):
     dev = x_flat.device
     z1o, z2o = torch.empty_like(z1), torch.empty_like(z2)
     e = torch.empty((B, nsub, C), dtype=F64, device=dev)
+    # the limiter's library builds beside this one: the first frame
+    # (the prime's) runs the measurement first
+    LIMITER_KERNEL.start_build()
     KWEIGHT_KERNEL.launch(
         "kweight_energies", x_flat.data_ptr(), x_flat.stride(0), B, C,
         nsub, z1.data_ptr(), z2.data_ptr(), _kweight_table(dev).data_ptr(),
@@ -306,9 +314,17 @@ def _loudness(e):
                        -math.inf)
 
 
-def _gating_append(blocks, bcount, e):
+def _gating_append(blocks, bcount, e, held: int):
     """Append 400 ms block energy e (B,) where above the absolute
-    gate (imp.rs via ebur128 I-mode). Saturates at max_blocks."""
+    gate (imp.rs via ebur128 I-mode). `held` is the most blocks a
+    stream can hold after this append (one a measured frame from the
+    fourth on): the history doubles in width before it could fill. The
+    new columns are zeros past every stream's blocks, which the tree
+    sums of `_global_and_threshold` add as exactly as their own zero
+    padding, so the gating reads as if the history had been that wide
+    from the start. (gstpu's core drops blocks past max_blocks.)"""
+    while blocks.shape[1] < held:
+        blocks = torch.cat([blocks, torch.zeros_like(blocks)], dim=1)
     maxb = blocks.shape[1]
     ok = (e > ABS_THRESHOLD_ENERGY) & (bcount < maxb)
     pos = bcount.clamp(0, maxb - 1)
@@ -389,10 +405,12 @@ def _update_gain(params: LoudnormParams, st, window_energy, st_out):
 # limiter (imp.rs:845-1437) — batched segment state machine
 # ---------------------------------------------------------------------------
 
-def _limiter_frame(params: LoudnormParams, lim, gr0, gr1, lstate,
-                   env_cnt, sus, nb: int):
+def _limiter_frame_plain(params: LoudnormParams, lim, gr0, gr1, lstate,
+                         env_cnt, sus, nb: int):
     """Run the true-peak limiter over the next nb samples of the
-    linear limiter window `lim` ((B, LIM*C), newest at the end).
+    linear limiter window `lim` ((B, LIM*C), newest at the end), as
+    torch ops: the segment loop steps every lane until the slowest is
+    done, the host waiting for the card's answer before each iteration.
     Returns (lim with envelopes applied, clipped out (B, FRAME*C),
     gr0, gr1, lstate, env_cnt, sus)."""
     C = params.channels
@@ -589,6 +607,104 @@ def _limiter_frame(params: LoudnormParams, lim, gr0, gr1, lstate,
     return lim, out, gr0, gr1, lstate, env_cnt, sus
 
 
+LIMITER_KERNEL = CudaKernel("limiter_frame", "limiter.cu", {
+    "limiter_frame": [_P, _LL, _I, _I, _I, ctypes.c_double, ctypes.c_double,
+                      ctypes.c_double, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P]})
+LIMITER_MAX_CHANNELS = 64
+# the frames whose iteration counts are on their way to the host:
+# (event, pinned (B,) int32), oldest first
+_iterations_due: deque = deque()
+_iterations_lock = threading.Lock()
+
+
+def count_limiter_iterations(wait: bool = False) -> None:
+    """Add to the counter `limiter.iterations` the slowest lane's
+    iterations of each kernel frame whose counts have reached the host;
+    with `wait`, wait for every frame's."""
+    with _iterations_lock:
+        while _iterations_due:
+            ev, counts = _iterations_due[0]
+            if not wait and not ev.query():
+                return
+            ev.synchronize()
+            _iterations_due.popleft()
+            count("limiter.iterations", int(counts.max()))
+
+
+def _limiter_frame_kernel(params: LoudnormParams, lim, gr0, gr1, lstate,
+                          env_cnt, sus, nb: int):
+    """_limiter_frame_plain's result from one launch of
+    kernels/limiter.cu, on CUDA tensors that `_limiter_frame` has
+    checked. Counts `limiter.kernel_frames`; where a tracer records, the
+    frame's iterations go to the host without blocking and reach
+    `limiter.iterations` at a later frame's call (or
+    `count_limiter_iterations`)."""
+    B, C, dev = lim.shape[0], params.channels, lim.device
+    f64, i32 = dict(dtype=F64, device=dev), dict(dtype=I32, device=dev)
+    lim_out = torch.empty((B, LIM * C), **f64)
+    out = torch.empty((B, FRAME * C), **f64)
+    gr0o, gr1o = torch.empty(B, **f64), torch.empty(B, **f64)
+    lso, envo, suso, iters = (torch.empty(B, **i32) for _ in range(4))
+    LIMITER_KERNEL.launch(
+        "limiter_frame", lim.data_ptr(), lim.stride(0), B, C, nb,
+        params.target_tp, 1.0 / (ATTACK - 1.0), 1.0 / (RELEASE - 1.0),
+        gr0.data_ptr(), gr1.data_ptr(), lstate.data_ptr(),
+        env_cnt.data_ptr(), sus.data_ptr(), lim_out.data_ptr(),
+        out.data_ptr(), gr0o.data_ptr(), gr1o.data_ptr(), lso.data_ptr(),
+        envo.data_ptr(), suso.data_ptr(), iters.data_ptr(),
+        stream_handle(dev))
+    count("limiter.kernel_frames")
+    if recording():
+        host = torch.empty(B, dtype=I32, pin_memory=True)
+        host.copy_(iters, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        with _iterations_lock:
+            _iterations_due.append((ev, host))
+    if _iterations_due:
+        count_limiter_iterations()
+    return lim_out, out, gr0o, gr1o, lso, envo, suso
+
+
+def _limiter_frame(params: LoudnormParams, lim, gr0, gr1, lstate,
+                   env_cnt, sus, nb: int):
+    """The true-peak limiter over the next nb samples of the limiter
+    window (imp.rs:845-1437). lim: (B, LIM*C) f64, each row's samples
+    contiguous; gr0, gr1: (B,) f64; lstate, env_cnt, sus: (B,) int32;
+    0 <= nb <= FRAME. Returns (lim with envelopes applied, clipped out
+    (B, FRAME*C), gr0, gr1, lstate, env_cnt, sus); the inputs are not
+    changed. The plain form for a CPU tensor, the kernel for a CUDA
+    one: the same bits."""
+    dev = lim.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"_limiter_frame: no route for {dev}")
+    C = params.channels
+    B = lim.shape[0]
+    if lim.dtype != F64 or lim.shape != (B, LIM * C) \
+            or lim.stride(-1) != 1 or not 1 <= C <= LIMITER_MAX_CHANNELS:
+        raise ValueError(f"_limiter_frame: lim must be ({B}, {LIM * C}) "
+                         f"f64 with each row's samples contiguous and at "
+                         f"most {LIMITER_MAX_CHANNELS} channels, got "
+                         f"{lim.dtype} {tuple(lim.shape)} strides "
+                         f"{lim.stride()}")
+    if not 0 <= nb <= FRAME:
+        raise ValueError(f"_limiter_frame: nb {nb} outside [0, {FRAME}]")
+    for name, v, dt in (("gr0", gr0, F64), ("gr1", gr1, F64),
+                        ("lstate", lstate, I32), ("env_cnt", env_cnt, I32),
+                        ("sus", sus, I32)):
+        if v.dtype != dt or v.shape != (B,) or not v.is_contiguous() \
+                or v.device != dev:
+            raise ValueError(f"_limiter_frame: {name} must be a contiguous "
+                             f"({B},) {dt} tensor on {dev}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+    if dev.type == "cpu":
+        return _limiter_frame_plain(params, lim, gr0, gr1, lstate, env_cnt,
+                                    sus, nb)
+    return _limiter_frame_kernel(params, lim, gr0, gr1, lstate, env_cnt,
+                                 sus, nb)
+
+
 def _limiter_first_special(params: LoudnormParams, lim, gr1, lstate, sus):
     """true_peak_limiter_first_frame (imp.rs:845-880): signed max over
     the first LOOKAHEAD+1 samples; prime SUSTAIN if above target."""
@@ -727,7 +843,8 @@ def make_meter_step(params: LoudnormParams):
             nsub = nsub + 1
             if nsub >= 4:
                 blocks, bcount = _gating_append(blocks, bcount,
-                                                window_energy(ring, 4))
+                                                window_energy(ring, 4),
+                                                nsub - 3)
         speak = torch.maximum(
             st["speak"], x.reshape(x.shape[0], -1, C).abs().amax(dim=1))
         global_, rel_th = _global_and_threshold(blocks, bcount)
@@ -787,7 +904,8 @@ def make_steps(params: LoudnormParams, with_meter: bool = False):
         blocks, bcount = st["blocks"], st["bcount"]
         if nsub >= 4:
             blocks, bcount = _gating_append(blocks, bcount,
-                                            window_energy(ring, 4))
+                                            window_energy(ring, 4),
+                                            nsub - 3)
         speak = torch.maximum(
             st["speak"],
             src.reshape(src.shape[0], -1, C).abs().amax(dim=1))

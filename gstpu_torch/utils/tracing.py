@@ -28,8 +28,9 @@ Spans (request in brackets; a span without one takes its parent's):
   `chains.STAGES`, in order: `chain.echo` there, and `chain.meas_in`,
   `chain.fill`, `chain.limiter`, `chain.meas_out`, `chain.gain` in
   `ops/loudnorm_dev.py` `inner_step`;
-* `limiter.wait`: `ops/loudnorm_dev.py` `_limiter_frame`, the host
-  waiting for the card's answer to the segment loop's test;
+* `limiter.wait`: `ops/loudnorm_dev.py` `_limiter_frame_plain` (the
+  CPU route), the host waiting for the answer to the segment loop's
+  test; the kernel route waits for nothing and records none;
 * `context.submit` (buffer pts), `context.fire` (fire number),
   `context.distribute` (the number of the fire distributed):
   `runtime/device_batch.py` `DeviceContext` and `ItemContext`;
@@ -37,7 +38,14 @@ Spans (request in brackets; a span without one takes its parent's):
   `appsrc.push` (buffer pts), `appsink.pull`:
   `elements/generic/app.py` `push_buffer`, `pull_all`.
 Counters:
-* `limiter.iterations`: the segment loop's iterations;
+* `limiter.iterations`: the segment loop's iterations a frame (the
+  slowest lane's). On the CPU route counted as they run; on the kernel
+  route (`_limiter_frame_kernel`) the card writes each lane's count,
+  which is copied to pinned host memory without blocking and added once
+  its event has completed, at a later frame's call or at
+  `count_limiter_iterations()`, and only while a tracer is installed;
+* `limiter.kernel_frames`: the frames `kernels/limiter.cu` ran, one a
+  call of `_limiter_frame` on the card;
 * `context.stacked_rows`, `context.stacked_bytes`: the rows and bytes
   `DeviceContext._batch` stacks or uploads into a fire's batch (a bank
   of rows taken whole adds nothing).
@@ -413,6 +421,12 @@ def count(name: str, n: int = 1) -> None:
     p = _program
     if p is not None:
         p.count(name, n)
+
+
+def recording() -> bool:
+    """Whether a program-spans tracer is installed: a site whose count
+    costs work of its own (a copy from the card) does it only then."""
+    return _program is not None
 
 
 class _Thread:

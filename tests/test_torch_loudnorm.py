@@ -14,6 +14,10 @@ The EOS drain (`make_final_step`) and the stand-alone meter
 (`make_meter_step`) are held against gstpu's the same way.
 """
 
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -488,3 +492,448 @@ def test_kernel_order_is_the_plain_form(B, C, nsub, scale):
     want = tln.kweight(z1, z2, x, C)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the true-peak limiter (tln._limiter_frame): the plain form on the CPU,
+# and the order of operations of the card's kernel (kernels/limiter.cu)
+# ---------------------------------------------------------------------------
+
+LIM, NPEAK, LOOKAHEAD = tln.LIM, tln.NPEAK, tln.LOOKAHEAD
+ATTACK, RELEASE = tln.ATTACK, tln.RELEASE
+OUT, ATT, SUS, REL = tln.OUT, tln.ATT, tln.SUS, tln.REL
+_LIMITER_CU = (Path(tln.__file__).resolve().parents[1] / "kernels"
+               / "limiter.cu").read_text()
+# the kernel's range list and its threads, read from its source
+KSEGS = int(re.search(r"constexpr int kSegs = (\d+);", _LIMITER_CU)[1])
+NWORDS = (NPEAK + 31) // 32
+
+
+def _true_div(x, c):
+    """The CPU's `tensor / number`: an IEEE division."""
+    return x / c
+
+
+def _reciprocal_product(x, c):
+    """CUDA's `tensor / number`: a product with the number's reciprocal,
+    as the kernel's wrapper passes it."""
+    return x * (1.0 / c)
+
+
+def _peak_words(a, tp):
+    """detect_peak's candidates of one lane as the kernel's bitmask
+    words: a (ABSW, C) |x|; bit p of the mask for position p."""
+    p = np.arange(1, NPEAK)
+    t = a[p]
+    ok = (a[p - 1] <= t) & (t >= a[p + 1]) & (t > tp)
+    for k in range(2, 12):
+        ok &= a[p + k] <= t
+    hit = np.zeros(NWORDS * 32, bool)
+    hit[1:NPEAK] = ok.any(axis=1)
+    bits = hit.reshape(NWORDS, 32).astype(object) * [1 << i for i in
+                                                      range(32)]
+    return [int(w) for w in bits.sum(axis=1)]
+
+
+def _detect(words, lo, hi):
+    """The first set bit in [lo, hi), 32 words at a time as the warp
+    reads them; None where there is none."""
+    if lo >= hi:
+        return None
+    wl, wh = lo >> 5, (hi - 1) >> 5
+    for w0 in range(wl, wh + 1, 32):
+        for w in range(w0, min(w0 + 32, wh + 1)):
+            m = words[w]
+            if w == wl:
+                m &= (0xFFFFFFFF << (lo & 31)) & 0xFFFFFFFF
+            if w == wh and hi - 32 * w < 32:
+                m &= (1 << (hi - 32 * w)) - 1
+            if m:
+                return 32 * w + (m & -m).bit_length() - 1
+    return None
+
+
+def _limiter_kernel_order(tp, C, lim, gr0, gr1, ls, env, sus, nb,
+                          div_number=_true_div):
+    """kernels/limiter.cu's steps for one lane, in Python floats (IEEE
+    doubles, each operation rounded once): the peak bitmask, the scalar
+    segment machine with its range list flushed into the gain G every
+    KSEGS ranges, and the product and clip. `div_number` is the device's
+    rule for a tensor divided by a Python number in the plain form.
+    Returns (lim, out, gr0, gr1, ls, env, sus, iterations, trace), the
+    trace one (smp, new smp, ranges, branch) an iteration."""
+    x = np.asarray(lim, np.float64)
+    a = np.abs(x[:tln.ABSW * C]).reshape(-1, C)
+    words = _peak_words(a, tp)
+    G = np.ones(FRAME)
+    segs, trace = [], []
+    smp = iters = 0
+    cap = 4 * nb + 4
+
+    def flush():
+        for s0, s1, ref, linear, t0, denom, diff, base in segs:
+            for i in range(s0, s1):
+                G[i] = base - ((t0 + float(i - ref)) / denom) * diff \
+                    if linear else base
+        segs.clear()
+
+    while smp < nb and iters < cap and OUT <= ls <= REL:
+        q = _detect(words, smp + LOOKAHEAD + 1, nb + LOOKAHEAD)
+        found = q is not None
+        np_smp = (q if found else 0) - LOOKAHEAD
+        pv = 1.0
+        if found:
+            pv = float(a[q, 0])
+            for c in range(1, C):
+                v = float(a[q, c])
+                if not math.isnan(pv) and (math.isnan(v) or v > pv):
+                    pv = v
+        gnew = (1.0 / pv) * tp
+        envf = float(env)
+        n_ls, n_env, n_sus, n_smp, n_gr0, n_gr1 = ls, env, sus, smp, gr0, gr1
+        lin = cst = (0, 0)
+        lin_denom, lin_diff = ATTACK - 1.0, gr0 - gr1
+        if ls == OUT:
+            branch = "out_found" if found else "out_none"
+            n_smp = smp + LOOKAHEAD + np_smp - smp - ATTACK if found else nb
+            if found:
+                n_ls, n_env, n_sus, n_gr0, n_gr1 = ATT, 0, -1, 1.0, gnew
+        elif ls == ATT:
+            k = min(ATTACK - env, nb - smp)
+            if found:
+                k = min(k, np_smp - smp)
+            k = max(k, 0)
+            lin = (smp, k)
+            smp1, env1 = smp + k, env + k
+            cst = (smp1, np_smp - smp1 if found else 0)
+            smp2 = np_smp if found else smp1
+            lower = found and gnew < gr1
+            current = gr0 - div_number(float(env1), ATTACK - 1.0) \
+                * (gr0 - gr1)
+            old_slope = -(gr0 - gr1)
+            new_slope = -(current - gnew)
+            steeper = new_slope <= old_slope
+            safe = old_slope if old_slope != 0.0 else 1.0
+            new_end = (gnew - gr0) / safe
+            if not math.isnan(new_end):
+                new_end = max(new_end, 1.0)
+            new_start = new_end - 1.0
+            sh_gr0 = gr0 + new_start * old_slope
+            cur_pos = (current - sh_gr0) / safe
+            if not math.isnan(cur_pos):
+                cur_pos = min(max(cur_pos, 0.0), 1.0)
+            sh_env = int((ATTACK - 1.0) * cur_pos)
+            if lower:
+                branch = "att_steeper" if steeper else "att_shallower"
+                n_gr0 = current if steeper else sh_gr0
+                n_gr1 = gnew
+                n_env = 0 if steeper else sh_env
+                n_sus = -1 if steeper else sh_env
+                n_ls = ATT
+            else:
+                n_env = env1
+                if found and env1 < ATTACK:
+                    n_sus = env1
+                if env1 == ATTACK and smp2 < nb:
+                    n_ls = SUS
+                branch = "att_to_sus" if n_ls == SUS else \
+                    "att_found" if found else "att_run"
+            n_smp = smp2
+        elif ls == SUS:
+            sc = np_smp - smp if found else sus
+            have = found or sus >= 0
+            s = max(min(sc, nb - smp), 0)
+            cst = (smp, s if have else 0)
+            n_smp = smp + s if have else smp
+            s_lower = found and gnew < gr1
+            n_gr0 = gr1 if s_lower else (gr0 if have else gr1)
+            n_gr1 = gnew if s_lower else (gr1 if have else 1.0)
+            sus_dec = sus - s
+            n_sus = ((-1 if s_lower else LOOKAHEAD) if found
+                     else (-1 if sus_dec == 0 else sus_dec)) if have else sus
+            n_env = 0 if (s_lower or not have) else env
+            n_ls = ATT if s_lower else (ls if have else REL)
+            branch = "sus_lower" if s_lower else "sus_found" if found else \
+                "sus_count" if have else "sus_to_rel"
+        else:
+            r_current = gr0 - div_number(envf, RELEASE - 1.0) * (gr1 - gr0)
+            r_lower = found and gnew < r_current
+            cst = (smp, max(np_smp - smp, 0) if r_lower else 0)
+            rk = max(min(RELEASE - env, nb - smp), 0)
+            lin = (smp, 0 if found else rk)
+            lin_denom, lin_diff = RELEASE - 1.0, gr1 - gr0
+            n_smp = np_smp if r_lower else (smp if found else smp + rk)
+            n_env = 0 if r_lower else (env if found else env + rk)
+            n_gr0 = r_current if r_lower else gr0
+            n_gr1 = gnew if r_lower else (r_current if found else gr1)
+            n_ls = ATT if r_lower else (SUS if found else
+                                        (OUT if smp + rk < nb else ls))
+            n_sus = -1 if r_lower else sus
+            branch = "rel_lower" if r_lower else "rel_found" if found else \
+                "rel_to_out" if n_ls == OUT else "rel_run"
+        ranges = []
+        l0, l1 = max(lin[0], 0), min(lin[0] + lin[1], FRAME)
+        if l1 > l0:
+            ranges.append((l0, l1, lin[0], True, envf, lin_denom, lin_diff,
+                           gr0))
+        c0, c1 = max(cst[0], 0), min(cst[0] + cst[1], FRAME)
+        if c1 > c0:
+            ranges.append((c0, c1, c0, False, 0.0, 1.0, 0.0, gr1))
+        segs.extend(ranges)
+        trace.append((smp, n_smp, ranges, branch))
+        gr0, gr1, ls, env, sus, smp = n_gr0, n_gr1, n_ls, n_env, n_sus, n_smp
+        iters += 1
+        if len(segs) + 2 > KSEGS:
+            flush()
+    flush()
+    head = x[:FRAME * C] * np.repeat(G, C)
+    out = np.minimum(np.maximum(head, -tp), tp)
+    return (np.concatenate([head, x[FRAME * C:]]), out, gr0, gr1, ls, env,
+            sus, iters, trace)
+
+
+def _limiter_window(B, C, spikes, seed, level=0.01):
+    """(B, LIM*C) windows: a quiet sine of each lane's own phase plus
+    noise, and `spikes[b]` a list of (position, height, channel or None
+    for every channel) one-sample spikes in lane b."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(LIM)
+    x = np.empty((B, LIM, C))
+    for b in range(B):
+        x[b] = (level * np.sin(2 * np.pi * 300.0 * n / RATE
+                               + rng.uniform(0, 6.3)))[:, None] \
+            + 1e-4 * rng.standard_normal((LIM, C))
+        for pos, h, ch in spikes[b]:
+            if ch is None:
+                x[b, pos, :] = h
+            else:
+                x[b, pos, ch % C] = h
+    return x.reshape(B, LIM * C)
+
+
+# each case: lanes of (state (ls, env, sus, gr0, gr1), spikes), nb, and
+# the branches the machine must take in it
+_LIMITER_CASES = {
+    "no_peak": ([((OUT, 0, -1, 1.0, 1.0), [])], FRAME, {"out_none"}),
+    "one_peak_out": ([((OUT, 0, -1, 1.0, 1.0), [(6000, 0.95, None)])],
+                     FRAME, {"out_found", "att_to_sus", "sus_to_rel",
+                             "rel_run"}),
+    "attack_steeper": ([((OUT, 0, -1, 1.0, 1.0),
+                         [(6000, 0.85, None), (6500, 0.99, 1)])],
+                       FRAME, {"att_steeper"}),
+    "attack_shallower": ([((OUT, 0, -1, 1.0, 1.0),
+                           [(6000, 0.99, 0), (6100, 0.995, None)])],
+                         FRAME, {"att_shallower"}),
+    "sustain_to_release": ([((SUS, 700, 1000, 0.8, 0.8), [])], FRAME,
+                           {"sus_count", "sus_to_rel", "rel_run"}),
+    "release_to_out": ([((REL, 18000, -1, 0.8, 1.0), [])], FRAME,
+                       {"rel_to_out", "out_none"}),
+    "release_peaks": ([((REL, 5000, -1, 0.8, 1.0), [(4000, 0.99, None)]),
+                       ((REL, 0, -1, 0.8, 1.0), [(4000, 0.999, None)])],
+                      FRAME, {"rel_found", "sus_found", "rel_lower"}),
+    "lookahead_at_frame_end": ([((OUT, 0, -1, 1.0, 1.0),
+                                 [(20500, 0.9, None)])],
+                               FRAME, {"out_found", "att_run"}),
+    "nb_short": ([((OUT, 0, -1, 1.0, 1.0),
+                   [(8000, 0.9, None), (9500, 0.99, None)])],
+                 7000, {"out_found", "att_run"}),
+    "done_beside_many": ([((OUT, 0, -1, 1.0, 1.0), []),
+                          ((OUT, 0, -1, 1.0, 1.0),
+                           [(2500 + 700 * i, 0.8 + 0.01 * i, i % 2)
+                            for i in range(18)])],
+                         FRAME, {"out_none", "att_steeper", "att_shallower",
+                                 "att_to_sus"}),
+}
+
+
+def _limiter_inputs(lanes, C, seed):
+    spikes = [sp for _, sp in lanes]
+    x = torch.from_numpy(_limiter_window(len(lanes), C, spikes, seed))
+    ls, env, sus, gr0, gr1 = (list(v) for v in zip(*[s for s, _ in lanes]))
+    return (x, torch.tensor(gr0, dtype=torch.float64),
+            torch.tensor(gr1, dtype=torch.float64),
+            torch.tensor(ls, dtype=torch.int32),
+            torch.tensor(env, dtype=torch.int32),
+            torch.tensor(sus, dtype=torch.int32))
+
+
+def _plain_with_iterations(params, args, nb):
+    from gstpu_torch.utils import tracing
+    spans = tracing.ProgramSpans()
+    spans.install()
+    try:
+        got = tln._limiter_frame(params, *args, nb)
+    finally:
+        spans.uninstall()
+    return got, spans.snapshot()["counters"].get("limiter.iterations", 0)
+
+
+def _order_check(params, args, nb):
+    """The kernel's order lane by lane against the plain form, bit for
+    bit; returns each lane's trace."""
+    want, iters = _plain_with_iterations(params, args, nb)
+    x, gr0, gr1, ls, env, sus = args
+    lanes = [_limiter_kernel_order(
+        params.target_tp, params.channels, x[b].numpy(), float(gr0[b]),
+        float(gr1[b]), int(ls[b]), int(env[b]), int(sus[b]), nb)
+        for b in range(x.shape[0])]
+    got = [torch.from_numpy(np.stack([r[0] for r in lanes])),
+           torch.from_numpy(np.stack([r[1] for r in lanes]))]
+    got += [torch.tensor([r[k] for r in lanes], dtype=dt) for k, dt in
+            ((2, torch.float64), (3, torch.float64), (4, torch.int32),
+             (5, torch.int32), (6, torch.int32))]
+    for name, g, w in zip(("lim", "out", "gr0", "gr1", "lstate", "env_cnt",
+                           "sus"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert max(r[7] for r in lanes) == iters
+    return [r[8] for r in lanes]
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("case", sorted(_LIMITER_CASES))
+def test_limiter_kernel_order(case, C):
+    """kernels/limiter.cu's steps, emulated lane by lane, give the plain
+    form's bits on every output and state and its iteration count, in
+    each branch of the machine: no peak; a peak found in OUT; a higher
+    peak during ATTACK (a steeper and a shallower slope, the second
+    spike in one channel); SUSTAIN counting down into RELEASE; RELEASE
+    back to OUT; peaks in RELEASE, lower and not; a peak in the look-
+    ahead past the frame's end; nb < FRAME with a peak past it; a lane
+    done after one iteration beside one that needs many. The card holds
+    the kernel itself to the plain form (chip_smoke.py)."""
+    lanes, nb, branches = _LIMITER_CASES[case]
+    params = tln.LoudnormParams(channels=C)
+    traces = _order_check(params, _limiter_inputs(lanes, C, 11 + C), nb)
+    seen = {t[3] for tr in traces for t in tr}
+    assert branches <= seen, (branches, seen)
+    if case == "done_beside_many":
+        assert len(traces[0]) == 1 and len(traces[1]) > 10
+
+
+def _check_ranges(trace, nb):
+    """What the kernel's range list rests on: each iteration writes
+    inside [smp, its new smp) and smp never falls, so ranges are
+    disjoint; at most three iterations in a row leave smp where it is,
+    so a frame takes at most 4 nb iterations."""
+    still = 0
+    for smp, n_smp, ranges, _ in trace:
+        assert n_smp >= smp
+        for s0, s1, *_ in ranges:
+            assert smp <= s0 < s1 <= n_smp
+        still = still + 1 if n_smp == smp else 0
+        assert still <= 3
+    assert len(trace) <= 4 * nb
+
+
+def _random_lanes(rng, B, C):
+    lanes = []
+    for _ in range(B):
+        ls = int(rng.integers(0, 4))
+        env = int(rng.integers(0, (RELEASE if ls == REL else ATTACK) + 1))
+        sus = int(rng.choice([-1, 0, int(rng.integers(0, LOOKAHEAD + 1))]))
+        gr = sorted(rng.uniform(0.5, 1.0, 2))
+        spikes = [(int(rng.integers(1, tln.ABSW - 1)),
+                   float(rng.uniform(0.5, 1.2)),
+                   None if rng.random() < 0.5 else int(rng.integers(C)))
+                  for _ in range(int(rng.integers(0, 40)))]
+        if rng.random() < 0.3:       # a short plateau above the ceiling
+            p = int(rng.integers(1, tln.ABSW - 200))
+            spikes += [(p + i, 0.9, None) for i in range(60)]
+        lanes.append(((ls, env, sus, float(gr[0]), float(gr[1])), spikes))
+    return lanes
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_limiter_kernel_ranges_on_random_frames(seed):
+    """Seeded random frames: random states, spikes and short plateaus,
+    nb anywhere in [0, FRAME]; the kernel's order gives the plain form's
+    bits and every lane keeps the bound the range list rests on."""
+    rng = np.random.default_rng(1000 + seed)
+    C = 1 + seed % 2
+    nb = int(rng.integers(0, FRAME + 1)) if seed else FRAME
+    lanes = _random_lanes(rng, 6, C)
+    params = tln.LoudnormParams(channels=C)
+    for trace in _order_check(params, _limiter_inputs(lanes, C, seed), nb):
+        _check_ranges(trace, nb)
+
+
+def test_limiter_kernel_plateau_bound():
+    """A plateau above the ceiling over the whole frame makes every
+    position a peak: the machine advances one sample an iteration, about
+    nb iterations, more than the range list holds at once, and still
+    within the bound. (The emulation alone: the plain form would take
+    minutes.)"""
+    x = _limiter_window(1, 2, [[(p, 0.9, None) for p in range(LIM)]], 3)
+    *_, iters, trace = _limiter_kernel_order(
+        tln.LoudnormParams(channels=2).target_tp, 2, x[0], 1.0, 1.0, OUT,
+        0, -1, FRAME)
+    _check_ranges(trace, FRAME)
+    assert FRAME - LOOKAHEAD <= iters <= 4 * FRAME
+    assert sum(len(t[2]) for t in trace) > KSEGS
+
+
+@pytest.mark.parametrize("fault", [
+    "lim_f32", "lim_width", "lim_columns", "gr0_f32", "lstate_i64",
+    "sus_shape", "nb_past_frame", "nb_negative", "meta_device"])
+def test_limiter_checks_raise(fault):
+    """The limiter refuses what neither route takes, before it routes."""
+    C = 2
+    params = tln.LoudnormParams(channels=C)
+    lim, gr0, gr1, ls, env, sus = _limiter_inputs(
+        [((OUT, 0, -1, 1.0, 1.0), [])] * 2, C, 5)
+    nb = FRAME
+    if fault == "lim_f32":
+        lim = lim.float()
+    elif fault == "lim_width":
+        lim = lim[:, :-C]
+    elif fault == "lim_columns":
+        lim = torch.cat([lim, lim], 1)[:, ::2]
+    elif fault == "gr0_f32":
+        gr0 = gr0.float()
+    elif fault == "lstate_i64":
+        ls = ls.long()
+    elif fault == "sus_shape":
+        sus = sus[:1]
+    elif fault == "nb_past_frame":
+        nb = FRAME + 1
+    elif fault == "nb_negative":
+        nb = -1
+    elif fault == "meta_device":
+        lim, gr0, gr1, ls, env, sus = (t.to("meta") for t in (
+            lim, gr0, gr1, ls, env, sus))
+    with pytest.raises(ValueError, match="_limiter_frame"):
+        tln._limiter_frame(params, lim, gr0, gr1, ls, env, sus, nb)
+
+
+@pytest.mark.parametrize("kind", ["steps", "meter"])
+def test_gating_history_grows_instead_of_dropping(kind):
+    """A history 16 blocks wide doubles before it could fill: the prime
+    and six steps (the meter: 36 frames) give the bits of a history
+    wide enough from the start, 33 blocks kept, none dropped."""
+    x = _sine(GAIN_LOOKAHEAD + 6 * FRAME, amp=0.1)[None, :]
+    x = torch.from_numpy(np.concatenate([x, 0.5 * x]))
+    runs = []
+    for width in (16, 64):
+        params = tln.LoudnormParams(channels=1, max_blocks=width)
+        if kind == "meter":
+            st = tln.init_meter_state(params, 2, device="cpu")
+            st, _, aux = tln.make_meter_step(params)(st, x)
+            outs = [aux["global_"], aux["relative_threshold"]]
+        else:
+            first, inner = tln.make_steps(params)
+            st = tln.init_state(params, 2, device="cpu")
+            st, out = first(st, x[:, :GAIN_LOOKAHEAD])
+            outs = [out]
+            for k in range(6):
+                off = GAIN_LOOKAHEAD + k * FRAME
+                st, out = inner(st, x[:, off:off + FRAME])
+                outs.append(out)
+        runs.append((st, outs))
+    (st, outs), (wide, wide_outs) = runs
+    assert st["blocks"].shape == (2, 64)
+    assert st["bcount"].tolist() == [33, 33]
+    for a, b in zip(outs, wide_outs):
+        assert torch.equal(a, b)
+    for k, v in st.items():
+        assert (torch.equal(v, wide[k]) if isinstance(v, torch.Tensor)
+                else v == wide[k]), k
