@@ -326,13 +326,20 @@ of every kernel library in DIR and needs no card.)
    frames and texts the CPU run's byte for byte, the grade read only by
    `cmafmux`; (e) `python -m gstpu_torch.tools.docs_cache` lists 268
    elements, its output the checked-in file.
+21. holds the KDA kernel (kernels/kda.cu, ops/kda.kda_recurrence) against
+   its plain form on the card within KDA_TOL of the plain form's largest
+   value, output and state: 1 and 128 rows, prefill runs of 1, 63, 1,020
+   and 4,096 tokens, ragged at 128 rows, and decode steps carrying each
+   route's own state; then times it at the kimilinear cell's shapes
+   beside its bound and the plain form's time (kda_phase).
+   `python3 chip_smoke.py --kda` runs this phase alone.
 
 It prints one JSON line each of the audio chain, of the element form, of
 audiornnoise, of the binaural render, of hsvdetector, of the codec legs,
 of the analytics path, of the parallel layer, of the host edge, of the
 host codecs, of the captions, of the plumbing, of the network edge, of
-the distribution edge, of WebRTC and of the cloud and model elements,
-the card's name and power limit, one JSON line of kernels and last
+the distribution edge, of WebRTC, of the cloud and model elements and of
+the KDA kernel, the card's name and power limit, one JSON line of kernels and last
 `{"ok": true, "device": {...}}`. Any failed
 phase raises, and the script then exits non-zero without that last line;
 so does a machine without CUDA or a directory without the gstpu_torch
@@ -7738,6 +7745,143 @@ def cloud_phase(gstpu_torch, smi, tmp: Path, kernels) -> dict:
     return res
 
 
+# the KDA kernel's check (phase 21): rows, prefill lengths, the heads
+# of 128 rows x 4,096 tokens (the plain form's inputs at 32 heads would
+# take 43 GB), decode steps after a prefill, and the bound on
+# |kernel - plain| over the plain form's largest |value|: f32 sums in
+# another order and fused, over at most 4,096 contracting steps
+KDA_ROWS, KDA_LENS, KDA_LONG_HEADS, KDA_DECODE = (1, 128), \
+    (1, 63, 1020, 4096), 4, 8
+KDA_TOL = 1e-4
+
+
+def kda_inputs(R: int, L: int, H: int, gen, dev) -> tuple:
+    """q, k unit vectors, v, a gate a channel whose decays exp(g) span
+    ~0.30 to ~0.999, beta in (0, 1): (R, L, H, 128) and (R, L, H)."""
+    from gstpu_torch.ops.kda import HEAD_DIM as K
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    q = torch.nn.functional.normalize(randn(R, L, H, K), dim=-1)
+    k = torch.nn.functional.normalize(randn(R, L, H, K), dim=-1)
+    v = randn(R, L, H, K) * 0.5
+    lo, hi = np.log(1e-3), np.log(1.2)
+    g = -(torch.rand(R, L, H, K, generator=gen, device=dev) * (hi - lo)
+          + lo).exp()
+    beta = torch.rand(R, L, H, generator=gen, device=dev)
+    return q, k, v, g, beta
+
+
+def kda_phase(dev, smi) -> dict:
+    """21. The KDA kernel (kernels/kda.cu, ops/kda.kda_recurrence on the
+    card) against its plain form on the card: 1 and 128 rows, prefill
+    runs of 1, 63, 1,020 and 4,096 tokens (ragged below the longest at
+    128 rows), and KDA_DECODE decode steps from a 63-token prefill's
+    state, each route from its own state; then its time at the cell's
+    shapes (128 rows of prompts of ~1,020 tokens, and one token; 32
+    heads; `time_ms`) beside the bound (roofline_kimi_linear's count)
+    and the plain form's."""
+    from gstpu_torch.ops import kda
+    K = kda.KDA_KERNEL
+    t0 = time.monotonic()
+    K.load()
+    log(f"[kda] {K.library_path.name}, nvcc {K.build_seconds} s "
+        f"({time.monotonic() - t0:.1f} s)")
+    for line in K.compiler_output.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"    {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    scale = kda.HEAD_DIM ** -0.5
+    worst = 0.0
+
+    def err(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def check(what, R, L, H, fresh=True, state=None, lens=None):
+        nonlocal worst
+        q, k, v, g, beta = kda_inputs(R, L, H, gen, dev)
+        if lens is None:
+            lens = torch.full((R,), L, dtype=torch.int32, device=dev)
+        if state is None:
+            state = torch.randn(R, H, 128, 128, generator=gen,
+                                device=dev) * 0.1
+        sk, sp = state.clone(), state.clone()
+        ok_ = kda.kda_recurrence(q, k, v, g, beta, sk, lens, scale, fresh)
+        op = kda.kda_recurrence_plain(q, k, v, g, beta, sp, lens, scale,
+                                      fresh)
+        torch.cuda.synchronize()
+        e = max(err(ok_, op), err(sk, sp))
+        worst = max(worst, e)
+        log(f"[kda] {what}: rows {R}, tokens {L}, heads {H}: "
+            f"max |kernel - plain| / max |plain| {e:.3e}")
+        if not e <= KDA_TOL:
+            raise AssertionError(f"kda_recurrence differs from its plain "
+                                 f"form ({what})")
+        return sk, sp
+
+    for R in KDA_ROWS:
+        for L in KDA_LENS:
+            H = KDA_LONG_HEADS if R > 1 and L > 1020 else 32
+            lens = None
+            if R > 1:
+                lens = torch.randint(1, L + 1, (R,), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                lens[-1] = L
+            check("prefill", R, L, H, lens=lens)
+    # decode: each route from its own prefill state
+    for R in KDA_ROWS:
+        sk, sp = check("prefill before decode", R, 63, 32)
+        for t in range(KDA_DECODE):
+            q, k, v, g, beta = kda_inputs(R, 1, 32, gen, dev)
+            ones = torch.ones(R, dtype=torch.int32, device=dev)
+            ok_ = kda.kda_recurrence(q, k, v, g, beta, sk, ones, scale,
+                                     False)
+            op = kda.kda_recurrence_plain(q, k, v, g, beta, sp, ones,
+                                          scale, False)
+            e = max(err(ok_, op), err(sk, sp))
+            worst = max(worst, e)
+        log(f"[kda] decode: rows {R}, {KDA_DECODE} steps: max |kernel - "
+            f"plain| / max |plain| {e:.3e} at the last")
+        if not e <= KDA_TOL:
+            raise AssertionError("kda_recurrence's decode differs")
+
+    # times at the cell's shapes (median, L2 flushed before each launch)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    lens = torch.from_numpy(np.clip(np.round(np.exp(
+        np.log(48) + 0.6 * np.random.default_rng(SEED).standard_normal(
+            128))), 16, 160).astype(np.int32) * 5 + 790).to(dev)
+    for what, L, fresh in (("prefill", int(lens.max()), True),
+                           ("decode", 1, False)):
+        n = lens if fresh else torch.ones(128, dtype=torch.int32,
+                                          device=dev)
+        q, k, v, g, beta = kda_inputs(128, L, 32, gen, dev)
+        state = torch.zeros(128, 32, 128, 128, device=dev)
+
+        def kern():
+            kda.kda_recurrence(q, k, v, g, beta, state, n, scale, fresh)
+
+        def plain():
+            kda.kda_recurrence_plain(q, k, v, g, beta, state, n, scale,
+                                     fresh)
+        ms = time_ms(kern, flush, 10)
+        plain_ms = time_ms(plain, flush, 1)
+        tokens = int(n.sum())
+        flops = 7.0 * 128 ** 2 * 32 * tokens
+        moved = tokens * 32 * 641 * 4 + 128 * 32 * 128 * 128 * 4 \
+            * (1 if fresh else 2)
+        bound = max(flops / F32_OPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+        rows[what] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": "operations" if flops / F32_OPS_PER_S
+                      >= moved / HBM_BYTES_PER_S else "bytes",
+                      "tokens": tokens, "roofline_pct": 100 * bound / ms}
+        log(f"[kda] time, {what} of 128 rows x 32 heads ({tokens} tokens): "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.3f} ms "
+            f"({rows[what]['bound_by']}), {100 * bound / ms:.1f}% of its "
+            f"roofline  [{smi}]")
+    return {"max_rel_err": worst, "tol": KDA_TOL, "times": rows}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         for d in sys.argv[2:]:
@@ -7747,6 +7891,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--kda"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        log(json.dumps({"kda": kda_phase(torch.device("cuda", 0), smi)}))
+        return 0
     import gstpu_torch
     from gstpu_torch.kernels import build_all, stream_handle
     from gstpu_torch.ops.hsv import (_INV_255, HSV_KERNEL, hsv_filter_frame,
@@ -8176,6 +8327,10 @@ def main() -> int:
                                "17": t18 - t17, "18": t19 - t18,
                                "19": t20 - t19,
                                "20": time.monotonic() - t20})
+    # 21. the KDA kernel of the kimi_linear model against its plain form
+    t21 = time.monotonic()
+    kda = kda_phase(dev, smi)
+    element["phase_s"]["21"] = time.monotonic() - t21
     log("[time] " + ", ".join(f"phase {k} {v:.1f} s"
                               for k, v in element["phase_s"].items()))
 
@@ -8195,6 +8350,7 @@ def main() -> int:
     log(json.dumps({"distribution": dist}))
     log(json.dumps({"webrtc": webrtc}))
     log(json.dumps({"cloud": cloud}))
+    log(json.dumps({"kda": kda}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -15,17 +15,18 @@ prompt's token ids on the port's default device (`gstpu_torch.init`),
 run there with TF32 off; the tokenizer stays on the host.
 `torch.manual_seed` seeds the CPU's generator and every CUDA device's.
 
-A model-path that holds a config.json of `model_type: deepseek_v3` and
-no weights runs the port's own model (gstpu_torch/models/deepseek_v3.py,
-`PortLm`) with weights drawn from `seed`, shared by every element that
-names the same directory and seed. It decodes greedily (temp=0). With no
-tokenizer files it departs from the reference's tokenizer: a prompt's
-UTF-8 bytes are its ids 0-255, and each generated id goes out as one
-printable byte (id mod 95 + 32), so a reply of n tokens reads back as n
-tokens in the next prompt's history. With `context`, every element of
-the named ItemContext submits its prompt and one fire serves them all
-in one batched prefill and decode loop; each reply keeps its input's
-pts and duration.
+A model-path that holds a config.json of `model_type: deepseek_v3`
+(gstpu_torch/models/deepseek_v3.py) or `kimi_linear`
+(gstpu_torch/models/kimi_linear.py) and no weights runs the port's own
+model of that type (`PortLm`) with weights drawn from `seed`, shared by
+every element that names the same directory and seed. It decodes
+greedily (temp=0). With no tokenizer files it departs from the
+reference's tokenizer: a prompt's UTF-8 bytes are its ids 0-255, and
+each generated id goes out as one printable byte (id mod 95 + 32), so a
+reply of n tokens reads back as n tokens in the next prompt's history.
+With `context`, every element of the named ItemContext submits its
+prompt and one fire serves them all in one batched prefill and decode
+loop; each reply keeps its input's pts and duration.
 """
 
 from __future__ import annotations
@@ -87,15 +88,15 @@ class TransformersLm:
 
 
 class PortLm:
-    """Engine on the port's deepseek_v3 model for a config-only
-    directory, with the byte tokenizer."""
+    """Engine on the port's own model of a config-only directory's
+    model_type (deepseek_v3, kimi_linear), with the byte tokenizer."""
 
     def __init__(self, model_path: str, config: dict, *, seed: int,
                  max_tokens: int):
         from gstpu_torch.core.device import default_device
-        from gstpu_torch.models.deepseek_v3 import DeepseekV3Lm
-        self.model = DeepseekV3Lm.load(model_path, config, seed,
-                                       default_device())
+        from gstpu_torch.models import port_model
+        self.model = port_model(config["model_type"]).load(
+            model_path, config, seed, default_device())
         self.max_tokens = max_tokens
 
     @staticmethod
@@ -195,7 +196,7 @@ class LlamaTextTransform(BaseTransform):
         self._history = []
         self._asked.clear()
         if self.engine is None and self.model_path:
-            from gstpu_torch.models.deepseek_v3 import config_only
+            from gstpu_torch.models import config_only
             try:
                 cfg = config_only(self.model_path)
                 if cfg is not None:
@@ -220,7 +221,8 @@ class LlamaTextTransform(BaseTransform):
             return True
         if self.context:
             self.post_error("llamatexttransform: context batching needs "
-                            "a config-only deepseek_v3 model-path")
+                            "a config-only deepseek_v3 or kimi_linear "
+                            "model-path")
             return False
         if self.engine is None:
             if not self.model_path:

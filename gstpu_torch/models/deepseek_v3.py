@@ -43,11 +43,21 @@ one a step), `llm.moe_route` (host, one an expert layer a step);
 counters `llm.requests`, `llm.prefill_tokens`, `llm.decode_tokens`,
 `llm.pad_tokens` (padding of the prefill chunks) and `llm.attn_keys`
 (query-key pairs attended, prefill and decode).
+
+What a model of another block shares (models/kimi_linear.py): `Shape`
+carries `rotary` (False: the rotary dims are never rotated) and `held`,
+the experts [0, held) of the router's this card holds; where it holds
+fewer than the router scores, pairs routed past them sort after the
+held ones, the grouped products compute no rows for them, their rows are
+zeroed, and `llm.expert_pairs_held` counts the computed pairs (summed on
+the card, read once the fire's ids are). A subclass gives its shape
+(`shape_type`), its seeded weights (`draw`), its per-stream state
+(`_cache`, `_slots`), its layers (`_prefill`, `_decode`) and its
+counters (`_count`); `generate` and `DecodeStep` serve it unchanged.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import weakref
 from dataclasses import dataclass
@@ -65,24 +75,8 @@ CACHE_BUCKET = 512          # cache positions come in runs of this many
 INIT_STD = 0.02             # seeded weights: normal(0, INIT_STD)
 BIAS_STD = 0.05             # seeded expert correction bias
 LATENT_EPS = 1e-6           # kv_a_layernorm and q_a_layernorm
-WEIGHT_SUFFIXES = (".safetensors", ".bin", ".pt", ".pth", ".gguf")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def config_only(path: str) -> dict | None:
-    """The config of a `deepseek_v3` model directory that holds a
-    config.json and no weights; None for any other directory."""
-    cfg_path = os.path.join(path, "config.json")
-    if not os.path.isfile(cfg_path):
-        return None
-    with open(cfg_path) as f:
-        cfg = json.load(f)
-    if cfg.get("model_type") != "deepseek_v3":
-        return None
-    if any(n.endswith(WEIGHT_SUFFIXES) for n in os.listdir(path)):
-        return None
-    return cfg
 
 
 @dataclass(frozen=True)
@@ -113,6 +107,8 @@ class Shape:
     max_pos: int
     interleave: bool
     dtype: torch.dtype
+    held: int           # this card's experts: [0, held) of the router's
+    rotary: bool        # RoPE on the latent attention's rotary dims
 
     @classmethod
     def of(cls, cfg: dict) -> "Shape":
@@ -148,7 +144,7 @@ class Shape:
             theta=float(cfg.get("rope_theta", 10000.0)),
             max_pos=cfg.get("max_position_embeddings", 4096),
             interleave=bool(cfg.get("rope_interleave", True)),
-            dtype=dtype)
+            dtype=dtype, held=cfg["n_routed_experts"], rotary=True)
 
     @property
     def qk_dim(self) -> int:
@@ -261,24 +257,32 @@ class DeepseekV3Lm:
 
     # shared by every element that loads the same directory and seed
     _loaded: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+    shape_type = Shape
+    draw = staticmethod(seeded_params)
 
     def __init__(self, config: dict, params: dict):
         self.config = config
-        self.shape = s = Shape.of(config)
+        self.shape = s = self.shape_type.of(config)
         self.p = params
         self.device = params["embed"].device
         self.dtype = s.dtype
         self.sm_scale = s.qk_dim ** -0.5
         self.fires = 0
         self._step = None           # the persistent captured DecodeStep
-        self._expert_ids = torch.arange(s.experts, device=self.device)
-        inv = 1.0 / (s.theta ** (torch.arange(
-            0, s.rope, 2, dtype=torch.int64, device=self.device).float()
-            / s.rope))
-        pos = torch.arange(s.max_pos, device=self.device).float()
-        freqs = torch.outer(pos, inv)
-        self._cos = torch.cat((freqs, freqs), -1).cos().to(s.dtype)
-        self._sin = torch.cat((-freqs.sin(), freqs.sin()), -1).to(s.dtype)
+        self._expert_ids = torch.arange(s.held, device=self.device)
+        # (token, expert) pairs computed on the held experts, summed on
+        # the card over a fire and read with its ids
+        self._held_pairs = torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
+        if s.rotary:
+            inv = 1.0 / (s.theta ** (torch.arange(
+                0, s.rope, 2, dtype=torch.int64, device=self.device).float()
+                / s.rope))
+            pos = torch.arange(s.max_pos, device=self.device).float()
+            freqs = torch.outer(pos, inv)
+            self._cos = torch.cat((freqs, freqs), -1).cos().to(s.dtype)
+            self._sin = torch.cat((-freqs.sin(), freqs.sin()),
+                                  -1).to(s.dtype)
         # the routers in f32, as their logits are computed
         self._routers = [lw["router"].float() if "router" in lw else None
                          for lw in params["layers"]]
@@ -286,7 +290,7 @@ class DeepseekV3Lm:
     @classmethod
     def from_seed(cls, config: dict, seed: int,
                   device) -> "DeepseekV3Lm":
-        return cls(config, seeded_params(Shape.of(config), seed, device))
+        return cls(config, cls.draw(cls.shape_type.of(config), seed, device))
 
     @classmethod
     def load(cls, path: str, config: dict, seed: int,
@@ -350,7 +354,7 @@ class DeepseekV3Lm:
         s = self.shape
         c, kr = F.linear(h, lw["kv_a"]).split([s.kv_rank, s.rope], -1)
         return (rms_norm(c, lw["kv_norm"], LATENT_EPS),
-                apply_rope(kr, cos, sin, s.interleave))
+                apply_rope(kr, cos, sin, s.interleave) if s.rotary else kr)
 
     def _attn_prefill(self, h, lw, cos, sin, slot):
         """Causal attention over right-padded rows h (b, L, D); writes
@@ -358,8 +362,9 @@ class DeepseekV3Lm:
         s = self.shape
         b, L, _ = h.shape
         q = self._query(h, lw).view(b, L, s.heads, s.qk_dim)
-        q[..., s.nope:] = apply_rope(q[..., s.nope:], cos[:, None],
-                                     sin[:, None], s.interleave)
+        if s.rotary:
+            q[..., s.nope:] = apply_rope(q[..., s.nope:], cos[:, None],
+                                         sin[:, None], s.interleave)
         c, k_rot = self._latent(h, lw, cos, sin)
         slot.copy_(torch.cat((c, k_rot), -1))
         kv = F.linear(c, lw["kv_b"]).view(b, L, s.heads, s.nope + s.v_dim)
@@ -386,7 +391,9 @@ class DeepseekV3Lm:
         B = h.shape[0]
         q = self._query(h, lw).view(B, s.heads, s.qk_dim)
         q_nope, q_rot = q.split([s.nope, s.rope], -1)
-        q_rot = apply_rope(q_rot, cos[:, None], sin[:, None], s.interleave)
+        if s.rotary:
+            q_rot = apply_rope(q_rot, cos[:, None], sin[:, None],
+                               s.interleave)
         c, k_rot = self._latent(h, lw, cos, sin)
         cache.index_put_((rows, pos), torch.cat((c, k_rot), -1))
         kv_b = lw["kv_b"].view(s.heads, s.nope + s.v_dim, s.kv_rank)
@@ -420,9 +427,12 @@ class DeepseekV3Lm:
             w = w / (w.sum(-1, keepdim=True) + 1e-20)
         return idx, w * s.routed_scale
 
-    def _moe(self, h: torch.Tensor, i: int, routes) -> torch.Tensor:
+    def _moe(self, h: torch.Tensor, i: int, routes,
+             tap=None) -> torch.Tensor:
         """Routed and shared experts of layer i over tokens h (T, D);
-        the chosen experts go into routes[i] (T, top_k) where given."""
+        the chosen experts go into routes[i] (T, top_k) where given, and
+        h and the routed experts' weighted sum into tap[0] and tap[1]
+        (T, D) where given."""
         s, lw = self.shape, self.p["layers"][i]
         with span("llm.moe_route"):
             idx, w = self._route(h, i)
@@ -433,19 +443,30 @@ class DeepseekV3Lm:
             offs = torch.searchsorted(flat[order], self._expert_ids,
                                       right=True).to(torch.int32)
         y = grouped_experts(h[order // s.top_k], lw["w13"], lw["w2"], offs)
+        if s.held < s.experts:
+            # the pairs of experts held elsewhere sort past offs[-1]: no
+            # rows were computed for them, so they add nothing here
+            held = offs[-1:]
+            y = y.masked_fill(torch.arange(
+                y.shape[0], device=y.device)[:, None] >= held, 0.0)
+            self._held_pairs += held[0]
         # back to (token, slot) order, then each token's weighted sum
         back = torch.empty_like(order).scatter_(
             0, order, torch.arange(order.numel(), device=order.device))
         routed = torch.bmm(w.to(h.dtype).unsqueeze(1),
                            y[back].view(h.shape[0], s.top_k, -1)).squeeze(1)
+        if tap is not None:
+            tap[0].copy_(h)
+            tap[1].copy_(routed)
         if s.shared:
             routed = routed + _swiglu(h, lw["shared_gate_up"],
                                       lw["shared_down"])
         return routed
 
-    def _mlp(self, h: torch.Tensor, i: int, routes) -> torch.Tensor:
+    def _mlp(self, h: torch.Tensor, i: int, routes,
+             tap=None) -> torch.Tensor:
         if self.shape.is_moe(i):
-            return self._moe(h, i, routes)
+            return self._moe(h, i, routes, tap)
         lw = self.p["layers"][i]
         return _swiglu(h, lw["gate_up"], lw["down"])
 
@@ -508,19 +529,36 @@ class DeepseekV3Lm:
         fits (a shorter fire masks the positions it does not use); a
         fire of another B or of more positions replaces them. Elsewhere
         a new step a fire."""
-        s = self.shape
-        Lc = min(-(-Lc // CACHE_BUCKET) * CACHE_BUCKET, s.max_pos)
+        Lc = min(-(-Lc // CACHE_BUCKET) * CACHE_BUCKET, self.shape.max_pos)
         step = self._step
-        if step is not None and step.cache.shape[1] == B \
-                and step.cache.shape[2] >= Lc:
+        if step is not None and step.rows == B and step.positions >= Lc:
             return step
         self._step = None                 # free before the new cache
-        step = DecodeStep(self, torch.zeros(
-            s.layers, B, Lc, s.kv_rank + s.rope, dtype=self.dtype,
-            device=self.device), graph=self.device.type == "cuda")
+        step = DecodeStep(self, self._cache(B, Lc), B, Lc,
+                          graph=self.device.type == "cuda")
         if step.graph:
             self._step = step
         return step
+
+    def _cache(self, B: int, Lc: int):
+        """A fire's per-stream state: the latent cache (layers, B, Lc,
+        rank + rope), zeroed."""
+        s = self.shape
+        return torch.zeros(s.layers, B, Lc, s.kv_rank + s.rope,
+                           dtype=self.dtype, device=self.device)
+
+    @staticmethod
+    def _slots(cache, r0: int, r1: int, L: int):
+        """What the prefill of rows r0:r1, padded to L, writes into."""
+        return cache[:, r0:r1, :L]
+
+    def _count(self, sl: list, T: int) -> None:
+        """A fire's counters: `sl` its prompts' lengths, T its reply's."""
+        count("llm.requests", len(sl))
+        count("llm.prefill_tokens", sum(sl))
+        count("llm.decode_tokens", len(sl) * (T - 1))
+        count("llm.attn_keys", sum(n * (n + 1) // 2 + (T - 1) * n
+                                   + T * (T - 1) // 2 for n in sl))
 
     @torch.inference_mode()
     def generate(self, prompts: list, max_tokens: int,
@@ -555,11 +593,7 @@ class DeepseekV3Lm:
                                  device=dev) for r in kept_rows]
         self.fires += 1
         with span("llm.fire", self.fires), tf32_off():
-            count("llm.requests", B)
-            count("llm.prefill_tokens", sum(sl))
-            count("llm.decode_tokens", B * (T - 1))
-            count("llm.attn_keys", sum(n * (n + 1) // 2 + (T - 1) * n
-                                       + T * (T - 1) // 2 for n in sl))
+            self._count(sl, T)
             with span("llm.prefill", device=True):
                 for r0, r1 in self.chunks(sl):
                     L = sl[r1 - 1]
@@ -575,7 +609,8 @@ class DeepseekV3Lm:
                         device=dev) if mine else None
                     logits = self._prefill(torch.from_numpy(ids).to(dev),
                                            last.to(dev),
-                                           step.cache[:, r0:r1, :L],
+                                           self._slots(step.cache, r0, r1,
+                                                       L),
                                            chunk_routes)
                     out[r0:r1, 0] = logits.argmax(-1)
                     for j, r in mine:
@@ -595,6 +630,9 @@ class DeepseekV3Lm:
                             routes[j][moe, sl[r] + t - 1] = \
                                 step.routes[moe, r]
             ids = out.cpu().tolist()
+            if s.held < s.experts:        # the card is idle: no wait
+                count("llm.expert_pairs_held", int(self._held_pairs))
+                self._held_pairs.zero_()
         return Generation(
             ids=[ids[row_of[b]] for b in range(B)],
             logits={b: kept[j] for j, b in enumerate(keep)}
@@ -608,16 +646,18 @@ class DecodeStep:
     (layers, B, Lc, rank + rope): `start(pos)` sets the rows' positions,
     then each call feeds one token a row at them, returns the logits
     (B, V) and moves the positions on; `routes` (layers, B, top_k) holds
-    the step's chosen experts. With `graph` the step is captured as a
-    CUDA graph at its first call and replayed after (one launch from the
-    host a step); its inputs and outputs are then static tensors."""
+    the step's chosen experts. With `graph` the first call runs the step
+    and captures it as a CUDA graph, which every later call replays (one
+    launch from the host a step); its inputs and outputs are then static
+    tensors."""
 
-    def __init__(self, model: DeepseekV3Lm, cache: torch.Tensor,
-                 graph: bool = False):
+    def __init__(self, model: DeepseekV3Lm, cache, rows: int,
+                 positions: int, graph: bool = False):
         s = model.shape
-        B, dev = cache.shape[1], cache.device
+        B, dev = rows, model.device
         # the model keeps its steps: a weak reference leaves no cycle
         self.model, self.cache = weakref.ref(model), cache
+        self.rows, self.positions = rows, positions
         self.tok = torch.zeros(B, dtype=torch.int64, device=dev)
         self.pos = torch.zeros(B, dtype=torch.int64, device=dev)
         self.routes = torch.zeros(s.layers, B, s.top_k, dtype=torch.int64,
@@ -637,26 +677,33 @@ class DecodeStep:
         self.tok.copy_(tok)
         if not self.graph:
             logits = self._run()
+        elif self._captured is None:
+            logits = self._capture()
         else:
-            if self._captured is None:
-                self._capture()
             self._captured.replay()
             logits = self.logits
         self.pos += 1
         return logits
 
-    def _capture(self) -> None:
-        """Run the step once on a side stream (it writes the cache entry
-        that the replay writes again), then capture it."""
-        side = torch.cuda.Stream(self.cache.device)
-        side.wait_stream(torch.cuda.current_stream(self.cache.device))
+    def _capture(self) -> torch.Tensor:
+        """Run this call's step once on a side stream, then capture it
+        for the calls after (a capture runs nothing): every step runs
+        once, so a state that a step updates in place, not only the
+        cache entry it writes, is updated once. The first step's
+        logits."""
+        dev = self.tok.device
+        here = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(here)
         with torch.cuda.stream(side):
-            self._run()
-        torch.cuda.current_stream(self.cache.device).wait_stream(side)
+            logits = self._run()
+        here.wait_stream(side)
+        logits.record_stream(here)
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             self.logits = self._run()
         self._captured = g
+        return logits
 
 
 def _mlp_names(prefix: str, gate_up: torch.Tensor,

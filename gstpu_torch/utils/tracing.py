@@ -49,6 +49,19 @@ Counters:
 * `context.stacked_rows`, `context.stacked_bytes`: the rows and bytes
   `DeviceContext._batch` stacks or uploads into a fire's batch (a bank
   of rows taken whole adds nothing).
+The port's language models (`models/deepseek_v3.py`, whose `generate`
+`models/kimi_linear.py` shares): spans `llm.fire` (fire number),
+`llm.prefill` and `llm.decode` (device, one a decode step),
+`llm.moe_route` (host, one an expert layer run eagerly); counters
+`llm.requests`, `llm.prefill_tokens`, `llm.decode_tokens`,
+`llm.pad_tokens` (padding of the prefill chunks), `llm.attn_keys` (the
+query-key pairs of one attention layer, prefill and decode). In
+kimi_linear besides: `llm.kda_tokens` (real tokens through KDA layers,
+prefill and decode, summed over the layers), `llm.kda_state_bytes` (the
+f32 state bytes `kernels/kda.cu` read and wrote) and
+`llm.expert_pairs_held` ((token, expert) pairs computed on the experts
+this card holds, padding included, of top_k a token; summed on the card
+and read with the fire's ids, after its one wait).
 """
 
 from __future__ import annotations

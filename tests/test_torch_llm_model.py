@@ -198,14 +198,16 @@ def test_chunks_hold_the_budget():
 def test_config_only_directory(tmp_path):
     """A config.json of deepseek_v3 with no weights selects the port's
     model; weights beside it, or another model_type, do not."""
+    from gstpu_torch.models import config_only, port_model
     (tmp_path / "config.json").write_text(json.dumps(TINY))
-    assert dv.config_only(str(tmp_path)) == TINY
+    assert config_only(str(tmp_path)) == TINY
+    assert port_model(TINY["model_type"]) is dv.DeepseekV3Lm
     (tmp_path / "model.safetensors").write_bytes(b"")
-    assert dv.config_only(str(tmp_path)) is None
+    assert config_only(str(tmp_path)) is None
     other = tmp_path / "gpt2"
     other.mkdir()
     (other / "config.json").write_text(json.dumps({"model_type": "gpt2"}))
-    assert dv.config_only(str(other)) is None
+    assert config_only(str(other)) is None
     with pytest.raises(ValueError, match="scoring_func"):
         dv.Shape.of(dict(TINY, scoring_func="softmax"))
 
